@@ -1,0 +1,274 @@
+"""Batched inference engine + serving CLI (port of vqa_tpu/serve.py).
+
+:class:`VQAPredictor` holds the model on one device, decodes images on the
+host, preprocesses them on the device, pads partial batches to
+``batch_size`` and maps the softmax to top-k answer strings; :func:`main` is
+the JSONL CLI with vqa_tpu.serve's flags plus ``--device``::
+
+    python -m vqa_tpu_torch.serve --model attention --vocab_file vocab.pkl \\
+        --img_dir imgs --input pairs.txt --output preds.jsonl
+
+With int8 stages, static scales resolve in this order: ``--calib_file``,
+then the checkpoint's ``int8_calib.json`` sidecar, then the first request
+batch. ``--device cuda`` (the default) needs a card and never falls back to
+the CPU; the CPU runs only with an explicit ``--device cpu``. The data
+contract (text, vocab, image decode) is vqa_tpu's own modules, which import
+no JAX.
+
+Not ported yet: ``--from_export`` / ``--export_to`` and native ``.ckpt``
+checkpoints (a reference-format ``.pth`` loads).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+from vqa_tpu.data.images import decode_batch
+from vqa_tpu.text import pad_sequences, preprocess_text
+from vqa_tpu.vocab import UNK_TOKEN, Vocab
+
+from .config import build_model
+from .data.pipeline import make_image_preprocessor
+from .models.convert import load_pth
+
+
+def _resolve_device(device: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available (pass "
+                           "--device cpu to run on the CPU)")
+    return dev
+
+
+class VQAPredictor:
+    """Batch predictor over a reference-format checkpoint (or seeded weights)."""
+
+    def __init__(self, model_name: str, vocab: Vocab, checkpoint: str | None = None,
+                 *, num_cls: int | None = None, batch_size: int = 32,
+                 opt_lvl: int = 1, use_pallas: bool = False,
+                 int8_backbone: bool | None = None, hpack_pool: bool = True,
+                 fused_stem: bool = True, int8_handoff: bool = True,
+                 int8_stages: tuple | None = None, calib_file: str | None = None,
+                 int8_dynamic: bool = False, synthetic_images: bool = False,
+                 image_size: int | None = None, device: str = "cuda"):
+        self.vocab = vocab
+        self.model_name = model_name
+        self.batch_size = batch_size
+        self.synthetic_images = synthetic_images
+        self.device = _resolve_device(device)
+        self._needs_calib = False
+        self.calibrated_on_batch = None     # 1-based batch index, if any
+        self.batch_seconds: list[float] = []
+
+        sd = None
+        if checkpoint:
+            if not checkpoint.endswith(".pth"):
+                raise NotImplementedError(
+                    f"{checkpoint}: native .ckpt checkpoints are not ported yet; "
+                    f"pass a reference-format .pth")
+            sd = load_pth(checkpoint)
+            # head size comes from the checkpoint itself
+            num_classes = int(sd["mlp_classify.W_h.weight"].shape[0])
+        else:
+            num_classes = (num_cls + 1) if num_cls is not None else vocab.num_labels
+        self.num_classes = num_classes
+        self.model, cfg = build_model(
+            model_name, vocab.size, num_classes, device=self.device,
+            hpack_pool=hpack_pool, fused_stem=fused_stem,
+            int8_handoff=int8_handoff, int8_stages_override=int8_stages,
+            opt_lvl=opt_lvl, use_pallas=use_pallas, int8_backbone=int8_backbone,
+            generator=torch.Generator().manual_seed(0))
+        if sd is not None:
+            self.model.load_state_dict(sd, strict=True)
+        self.model.eval()
+        if self.model.int8_stages:
+            from .train.calibrate import load_calib, load_calib_file
+            amax = None
+            if calib_file:
+                amax = load_calib_file(calib_file, self.model.int8_stages, model_name)
+            if amax is None and checkpoint:
+                amax = load_calib(os.path.dirname(os.path.abspath(checkpoint)),
+                                  self.model.int8_stages)
+            if amax is not None:
+                self.model.int8_amax = amax
+            elif int8_dynamic:
+                print("NOTE: no int8_calib.json next to the checkpoint; "
+                      "int8 stages use dynamic per-batch activation scales "
+                      "(predictions depend on batch composition)")
+            else:
+                self._needs_calib = True
+                print("NOTE: no int8_calib.json next to the checkpoint; "
+                      "static scales will be calibrated from the first "
+                      "request batch (pass --int8_dynamic for per-batch "
+                      "scales, or --calib_file for a curated sidecar)")
+        self.image_size = image_size or cfg.image_size
+        self.preprocess = make_image_preprocessor(self.image_size, device=self.device)
+
+    def encode_questions(self, questions: list[str]):
+        """Raw question strings -> (ids [N, L], lengths [N])."""
+        unk = self.vocab.word2idx[UNK_TOKEN]
+        ids = np.zeros((len(questions), self.vocab.max_seq_length), np.int32)
+        lens = np.zeros((len(questions),), np.int32)
+        for i, q in enumerate(questions):
+            toks = [self.vocab.word2idx.get(w, unk) for w in preprocess_text(q)]
+            ids[i] = pad_sequences(toks, self.vocab.max_seq_length)
+            lens[i] = int(np.count_nonzero(ids[i]))
+        return ids, lens
+
+    def _calibrate(self, images_u8) -> None:
+        """Bake static int8 scales from the first request batch."""
+        from .train.calibrate import calibrate_model
+        print(f"int8 serve calibration: static per-channel scales from the "
+              f"first request batch ({len(images_u8)} images)")
+        calibrate_model(self.model_name, self.model, self.preprocess,
+                        [images_u8], log=lambda s: None)
+        self._needs_calib = False
+
+    def _probs(self, images_u8, ids, lens) -> np.ndarray:
+        dev = self.device
+        logits = self.model(self.preprocess(images_u8),
+                            torch.from_numpy(ids).long().to(dev),
+                            torch.from_numpy(lens).long().to(dev))
+        return torch.softmax(logits.float(), dim=-1).cpu().numpy()
+
+    def predict(self, image_paths: list[str], questions: list[str],
+                top_k: int = 1) -> list[dict]:
+        """Answer (image, question) pairs, batch by batch.
+
+        Returns per-sample dicts: {answer, prob, topk: [(answer, prob), ...]}.
+        ``batch_seconds`` gets each batch's wall time, host to answers.
+        """
+        if len(image_paths) != len(questions):
+            raise ValueError("image_paths and questions differ in length")
+        results: list[dict] = []
+        bs = self.batch_size
+        for start in range(0, len(questions), bs):
+            t0 = time.perf_counter()
+            chunk_paths = image_paths[start:start + bs]
+            chunk_qs = questions[start:start + bs]
+            n = len(chunk_qs)
+            images = decode_batch(chunk_paths, self.image_size,
+                                  synthetic_fallback=self.synthetic_images)
+            if self._needs_calib:
+                self._calibrate(images)
+                self.calibrated_on_batch = len(self.batch_seconds) + 1
+            ids, lens = self.encode_questions(chunk_qs)
+            if n < bs:
+                images = np.concatenate(
+                    [images, np.zeros((bs - n,) + images.shape[1:], images.dtype)])
+                ids = np.concatenate([ids, np.zeros((bs - n, ids.shape[1]), ids.dtype)])
+                lens = np.concatenate([lens, np.ones((bs - n,), lens.dtype)])
+            probs = self._probs(images, ids, lens)[:n]
+            order = np.argsort(-probs, axis=-1)[:, :top_k]
+            for row, top in zip(probs, order):
+                topk = [(self.vocab.idx2label.get(int(i), "UNKNOWN"), float(row[i]))
+                        for i in top]
+                results.append({"answer": topk[0][0], "prob": topk[0][1],
+                                "topk": topk})
+            self.batch_seconds.append(time.perf_counter() - t0)
+        return results
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(description="VQA batched inference (PyTorch/CUDA)")
+    ap.add_argument("--model", choices=["baseline", "attention", "bert"], required=True)
+    ap.add_argument("--vocab_file", required=True)
+    ap.add_argument("--model_ckpt", help="reference-format .pth")
+    ap.add_argument("--img_dir", default=".", help="image directory")
+    ap.add_argument("--input", help="dataset .txt (img\\tq\\t[ans]) or '-' for "
+                                    "stdin pairs 'img\\tq'")
+    ap.add_argument("--from_export", help="not ported yet")
+    ap.add_argument("--export_to", help="not ported yet")
+    ap.add_argument("--output", help="output JSONL (default stdout)")
+    ap.add_argument("--batch_size", type=int, default=32)
+    ap.add_argument("--top_k", type=int, default=1)
+    ap.add_argument("--num_cls", type=int)
+    ap.add_argument("--opt_lvl", type=int, default=1, choices=[0, 1, 2, 3])
+    ap.add_argument("--int8_backbone", type=str, default="auto",
+                    choices=["auto", "true", "false"],
+                    help="int8-PTQ frozen backbone; auto = on at --opt_lvl >= 1 "
+                         "on a CUDA device")
+    ap.add_argument("--int8_stages", type=str, default="auto",
+                    help="comma-separated conv indices to int8-quantize")
+    ap.add_argument("--calib_file", type=str,
+                    help="explicit int8 calibration sidecar (int8_calib.json "
+                         "format, or keyed by model name)")
+    ap.add_argument("--int8_dynamic", action="store_true",
+                    help="dynamic per-batch activation scales instead of "
+                         "calibrating static ones from the first batch")
+    ap.add_argument("--use_pallas", action="store_true")
+    ap.add_argument("--synthetic_images", action="store_true")
+    ap.add_argument("--image_size", type=int,
+                    help="override input resolution (default: per-model)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device; 'cuda' (default) fails without a card")
+    return ap
+
+
+def main(argv=None):
+    """Serve a JSONL of answers; returns the predictor."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.from_export or args.export_to:
+        raise NotImplementedError("--from_export / --export_to are not ported yet")
+    if not args.input:
+        parser.error("--input is required")
+    vocab = Vocab.load(args.vocab_file)
+    predictor = VQAPredictor(
+        args.model, vocab, args.model_ckpt, num_cls=args.num_cls,
+        batch_size=args.batch_size, opt_lvl=args.opt_lvl,
+        use_pallas=args.use_pallas,
+        int8_backbone={"auto": None, "true": True, "false": False}[args.int8_backbone],
+        int8_stages=(None if args.int8_stages == "auto" else
+                     tuple(int(i) for i in args.int8_stages.split(",") if i)),
+        calib_file=args.calib_file, int8_dynamic=args.int8_dynamic,
+        synthetic_images=args.synthetic_images, image_size=args.image_size,
+        device=args.device)
+
+    if args.input == "-":
+        lines = sys.stdin.read().split("\n")
+    else:
+        with open(args.input) as f:
+            lines = f.read().split("\n")
+    img_paths, questions = [], []
+    for lineno, line in enumerate(lines, 1):
+        if not line.strip():
+            continue
+        parts = line.strip().split("\t")
+        if len(parts) < 2:
+            raise SystemExit(f"{args.input}:{lineno}: expected 'img\\tquestion"
+                             f"[\\tanswer]', got: {line.strip()!r}")
+        img_paths.append(os.path.join(args.img_dir, parts[0]))
+        questions.append(parts[1])
+
+    # stream results batch by batch: each finished batch is on disk before
+    # the next one runs
+    out = open(args.output, "w") if args.output else sys.stdout
+    n_written = 0
+    try:
+        for start in range(0, len(questions), args.batch_size):
+            chunk_p = img_paths[start:start + args.batch_size]
+            chunk_q = questions[start:start + args.batch_size]
+            for path, q, r in zip(chunk_p, chunk_q,
+                                  predictor.predict(chunk_p, chunk_q, top_k=args.top_k)):
+                out.write(json.dumps({"image": os.path.basename(path),
+                                      "question": q.replace(",", " "), **r}) + "\n")
+                n_written += 1
+            out.flush()
+    finally:
+        if args.output:
+            out.close()
+    if args.output:
+        print(f"wrote {n_written} predictions to {args.output}")
+    return predictor
+
+
+if __name__ == "__main__":
+    main()
