@@ -9,25 +9,36 @@ Phases, each of which must pass (the script exits non-zero otherwise, and
 without CUDA it exits non-zero before printing any result):
 
 1. the card's name and power limit (nvidia-smi);
-2. build every CUDA kernel of the serving path from ``vqa_tpu_torch/csrc``
-   (one nvcc per source, started together) and time the build;
-3. kernel phase: each kernel mode of the path against its plain PyTorch
-   version on the card at the 448² serving shapes (2 samples), bit for bit,
-   then each mode's time against its plain version's at batch 32 (the JSON
-   line carries the static path's: kernel A's requant mode, and kernel B's
-   conv1-7 summed);
+2. build every CUDA kernel of the port from ``vqa_tpu_torch/csrc`` (one nvcc
+   per source, started together) and time the build;
+3. kernel phase: each kernel mode of the serving and training paths against
+   its plain PyTorch version on the card at the 448² shapes (2 samples), bit
+   for bit, then each mode's time against its plain version's at batch 32,
+   beside its bound (the least time the card could take: bytes over the
+   memory rate or operations over the peak rate for their type, whichever
+   is larger) and, for kernel C, ``F.conv2d`` (cuDNN) at the same shapes,
+   which computes the conv only. The JSON line carries kernel A's requant
+   mode, kernel B's conv1-7 summed (static path) and kernel C in bf16;
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
    requests with the ``attention`` model at full width, batch 32, 448²,
    ``--opt_lvl 1`` (int8 stages 0..7, fused stem, int8 hand-offs), random
    seeded weights and a synthetic vocab of bench.py's sizes; the launch
-   counts are zeroed just before and read just after, and every kernel must
-   have run and no plain conv on a CUDA tensor;
+   counts are zeroed just before and read just after, and kernels A and B
+   must have run and no plain conv on a CUDA tensor;
 5. cross-device phase: 2 of those requests through the same weights and
    calibration on the CPU's plain path; the VGG features must be bit-equal
-   and the probabilities within PROB_TOL.
+   and the probabilities within PROB_TOL;
+6. train phase: ``vqa_tpu_torch.main.main`` trains the same model at batch
+   32, 448² on 192 synthetic (image, question, answer) lines with 64
+   validation lines: the float route (``--int8_backbone false``: kernel C
+   launched once per train step and per eval batch, A and B never), a
+   resume from its step-3 checkpoint whose losses must match the
+   uninterrupted run's within RESUME_RTOL, ``--mode test`` through its
+   checkpoint, and 2 steps of the default int8 route (calibration, kernels A
+   and B). Each run zeroes the counts just before and reads them just after.
 
-The line before the last is a JSON object of per-kernel launches, errors and
-times; the last is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object of per-kernel launches, errors,
+times and bounds; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -46,6 +57,15 @@ VOCAB_WORDS, SEQ_LEN, ANSWERS = 10000, 23, 1000        # bench.py:279 (K = 1001)
 # CPU vs card probabilities: the question tower, co-attention and head run
 # in bf16 on both, with different matmul kernels; the VGG features are equal
 PROB_TOL = 1e-3
+N_TRAIN, N_VAL = 192, 64
+# the resumed run repeats steps 4-6 of the uninterrupted one from its
+# checkpoint; the head's cuBLAS/cuDNN kernels (weight-gradient reductions
+# among them) need not sum in the same order in two runs, so the losses are
+# held to a relative tolerance instead of bit-equality
+RESUME_RTOL = 1e-5
+# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s, int8
+# tensor-core ops/s, bf16 tensor-core FLOP/s (f32 sums), f32 CUDA-core FLOP/s
+HBM_BPS, INT8_OPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 1979e12, 989e12, 67e12
 
 
 def card_line() -> str:
@@ -78,9 +98,21 @@ def timed_pair(kernel_fn, plain_fn, n_kernel=20, n_plain=2):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(bytes_moved: int, ops: float, peak: float):
+    """(ms, what sets it): the larger of bytes over the memory rate and
+    operations over the peak rate for their type."""
+    t_bytes, t_ops = bytes_moved / HBM_BPS, ops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
 def kernel_phase(dev):
-    """Every kernel mode on the path vs its plain version, then times."""
+    """Every kernel mode on the paths vs its plain version, then times."""
     import torch
+    import torch.nn.functional as F
     from vqa_tpu_torch.ops import conv_hpack, conv_stage1
 
     g = torch.Generator().manual_seed(0)
@@ -91,8 +123,11 @@ def kernel_phase(dev):
     def rs(n, lo, hi):
         return (torch.rand(n, generator=g) * (hi - lo) + lo).to(dev)
 
-    errs = {"conv0_s2d_i8": 0.0, "conv3x3_i8": 0.0}
-    times = {"conv0_s2d_i8": [0.0, 0.0], "conv3x3_i8": [0.0, 0.0]}
+    names = ("conv0_s2d_i8", "conv3x3_i8", "conv0_f")
+    errs = {k: 0.0 for k in names}
+    times = {k: [0.0, 0.0] for k in names}
+    bounds = {k: [0.0, "bytes"] for k in names}
+    library = {k: None for k in names}
 
     def check(name, label, out, ref):
         torch.cuda.synchronize()
@@ -119,10 +154,15 @@ def kernel_phase(dev):
                 check("conv0_s2d_i8", label, k(), p())
                 continue
             ms, pms = timed_pair(k, p)
+            out = k()
+            bms, by = bound(nbytes(x, w, sc, bias, out) + (nbytes(s1) if "s1" in kw else 0),
+                            2.0 * b * IMAGE * IMAGE * 27 * 64, INT8_OPS)
             if label == "static requant":
                 times["conv0_s2d_i8"] = [ms, pms]
+                bounds["conv0_s2d_i8"] = [bms, by]
             print(f"time conv0_s2d_i8 b{b} {label}: kernel {ms:.4f} ms, "
-                  f"plain {pms:.4f} ms", flush=True)
+                  f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+            del out
         del x
 
     # kernel B: conv1..conv7 at 448² (H, C_in, C_out, pool); the static
@@ -146,14 +186,56 @@ def kernel_phase(dev):
                     check("conv3x3_i8", f"{name} {label}", k(), p())
                     continue
                 ms, pms = timed_pair(k, p)
+                out = k()
+                ops = 2.0 * b * hw * hw * c * o * 9
+                bms, by = bound(nbytes(x, w, sc, bias, out)
+                                + (nbytes(sn) if "s_next" in kw else 0), ops, INT8_OPS)
+                del out
                 if label == "static":
                     times["conv3x3_i8"][0] += ms
                     times["conv3x3_i8"][1] += pms
-                tops = 2 * b * hw * hw * c * o * 9 / (ms * 1e-3) / 1e12
+                    bounds["conv3x3_i8"][0] += bms
+                    bounds["conv3x3_i8"][1] = by
                 print(f"time conv3x3_i8 {name} b{b} {label}: kernel {ms:.4f} ms "
-                      f"({tops:.1f} int8 TOP/s), plain {pms:.4f} ms", flush=True)
+                      f"({ops / (ms * 1e-3) / 1e12:.1f} int8 TOP/s), plain {pms:.4f} ms, "
+                      f"bound {bms:.4f} ms ({by})", flush=True)
             del x
-    return errs, times
+
+    # kernel C: float conv0 (int8 off), bf16 (the training route at
+    # --opt_lvl >= 1) and f32 (--opt_lvl 0); the library yardstick is cuDNN's
+    # conv alone (no bias, ReLU or pool), in full f32 for f32 (TF32 off)
+    for dt, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for b in (2, BATCH):
+            x = (torch.randn((b, IMAGE, IMAGE, 3), generator=g) * 1.5).to(dev, dt)
+            w = (torch.randn((3, 3, 3, 64), generator=g) * 0.2).to(dev, dt)
+            bias = (torch.randn(64, generator=g) * 0.1).to(dev, dt)
+            k = lambda: conv_stage1.conv0_f(x, w, bias)          # noqa: E731
+            p = lambda: conv_stage1.conv0_f_plain(x, w, bias)    # noqa: E731
+            if b == 2:
+                check("conv0_f", label, k(), p())
+                continue
+            ms, pms = timed_pair(k, p)
+            x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                lib = lambda: F.conv2d(x_nchw, w_oihw, padding=1)  # noqa: E731
+                lms, _ = timed_pair(lib, lib, n_plain=20)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+            out = k()
+            bms, by = bound(nbytes(x, w, bias, out), 2.0 * b * IMAGE * IMAGE * 27 * 64,
+                            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+            del out
+            if label == "bf16":
+                times["conv0_f"] = [ms, pms]
+                bounds["conv0_f"] = [bms, by]
+                library["conv0_f"] = lms
+            print(f"time conv0_f b{b} {label}: kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                  f"F.conv2d (conv only) {lms:.4f} ms, bound {bms:.4f} ms ({by})",
+                  flush=True)
+            del x
+    return errs, times, bounds, library
 
 
 def write_requests():
@@ -178,6 +260,22 @@ def write_requests():
     with open(pairs, "w") as f:
         f.write("\n".join(lines) + "\n")
     return vocab_file, pairs
+
+
+def write_dataset(name: str, n: int, seed: int) -> str:
+    """``n`` training lines (synthetic image names, questions over the
+    vocab's words, answers among its labels) in the dataset .txt format."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    lines = []
+    for i in range(n):
+        k = int(rng.integers(3, SEQ_LEN + 1))
+        q = ",".join(f"w{int(j)}" for j in rng.integers(2, VOCAB_WORDS, k))
+        lines.append(f"{name}_{i:05d}.png\t{q}\ta{int(rng.integers(ANSWERS))}")
+    path = os.path.join(WORK, f"{name}.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
 
 
 def serve_phase(vocab_file, pairs, device="cuda"):
@@ -206,8 +304,8 @@ def serve_phase(vocab_file, pairs, device="cuda"):
         raise AssertionError("non-finite or out-of-range probabilities")
     if model.int8_stages != (0, 1, 2, 3, 4, 5, 6, 7) or predictor.calibrated_on_batch != 1:
         raise AssertionError("the int8 stages did not calibrate on the first batch")
-    if any(v == 0 for v in launches.values()):
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    if not (launches["conv0_s2d_i8"] and launches["conv3x3_i8"]):
+        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
     if any(v != 0 for v in plain_on_cuda.values()):
         raise AssertionError(f"a plain conv ran on a CUDA tensor: {plain_on_cuda}")
     secs = predictor.batch_seconds
@@ -223,8 +321,8 @@ def cross_device_phase(predictor, pairs, device="cuda"):
     calibration: bit-equal VGG features, probabilities within PROB_TOL."""
     import numpy as np
     import torch
-    from vqa_tpu.data.images import decode_batch
     from vqa_tpu_torch.config import build_model
+    from vqa_tpu_torch.data.images import decode_batch
     from vqa_tpu_torch.data.pipeline import make_image_preprocessor
 
     gpu_model = predictor.model
@@ -242,8 +340,10 @@ def cross_device_phase(predictor, pairs, device="cuda"):
     for name, model, d in (("cuda", gpu_model, torch.device(device)),
                            ("cpu", cpu_model, torch.device("cpu"))):
         x = make_image_preprocessor(IMAGE, device=d)(images)
-        feats = model.image_encoder(x)
-        logits = model(x, torch.from_numpy(ids).long().to(d), torch.from_numpy(lens).long().to(d))
+        with torch.no_grad():
+            feats = model.image_encoder(x)
+            logits = model(x, torch.from_numpy(ids).long().to(d),
+                           torch.from_numpy(lens).long().to(d))
         out[name] = (feats.float().cpu(), torch.softmax(logits.float(), -1).cpu())
     f_gpu, p_gpu = out["cuda"]
     f_cpu, p_cpu = out["cpu"]
@@ -257,6 +357,95 @@ def cross_device_phase(predictor, pairs, device="cuda"):
         raise AssertionError("VGG features differ between the card and the CPU plain path")
     if not (dp <= PROB_TOL and np.isfinite(p_gpu.numpy()).all()):
         raise AssertionError(f"probabilities differ by {dp} > {PROB_TOL}")
+
+
+def counts():
+    from vqa_tpu_torch import _build
+    return ({k.symbol: k.launches for k in _build.KERNELS},
+            {k.symbol: k.plain_on_cuda for k in _build.KERNELS})
+
+
+def train_phase(vocab_file, card="", device="cuda"):
+    """Float-route training, its resume and test mode, then the int8 route."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from vqa_tpu_torch import _build
+    from vqa_tpu_torch.main import main as vqa_main
+
+    runs = os.path.join(WORK, "runs")
+    shutil.rmtree(runs, ignore_errors=True)
+    train, val = write_dataset("train", N_TRAIN, 1), write_dataset("val", N_VAL, 2)
+
+    def args(mode, run, *extra, train_file=train):
+        return ["--mode", mode, "--model", "attention", "--expt_dir", runs,
+                "--expt_name", "smoke", "--run_name", run, "--train_img", WORK,
+                "--train_file", train_file, "--val_img", WORK, "--val_file", val,
+                "--vocab_file", vocab_file, "--batch_size", str(BATCH), "--num_epochs", "1",
+                "--num_cls", str(ANSWERS), "--image_size", str(IMAGE),
+                "--synthetic_images", "true", "--log_interval",
+                "2", "--save_interval", "3", "--val_size", str(N_VAL), "--num_workers", "8",
+                "--device", device, *extra]
+
+    float_route = ("--opt_lvl", "1", "--int8_backbone", "false")
+    _build.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    full = vqa_main(args("train", "float", *float_route))
+    float_launches, plain = counts()
+    launches = float_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = full["losses"]
+    print(f"train float route: {full['steps']} steps, losses {losses}, eval batches "
+          f"{full['eval_batches']}, launches {launches}, plain convs on CUDA {plain}",
+          flush=True)
+    if full["steps"] != N_TRAIN // BATCH or not np.isfinite(losses).all():
+        raise AssertionError("the float-route run did not train 6 finite steps")
+    if launches["conv0_f"] != full["steps"] + full["eval_batches"]:
+        raise AssertionError("kernel C did not run once per train step and eval batch")
+    if launches["conv0_s2d_i8"] or launches["conv3x3_i8"] or any(plain.values()):
+        raise AssertionError("the float route ran an int8 kernel or a plain conv")
+    ckpt3 = os.path.join(full["log_dir"], "model_3.ckpt")
+    if not os.path.exists(ckpt3):
+        raise AssertionError("model_3.ckpt was not written")
+    sync = dict(full["sync_points"])       # {steps done: train seconds}
+    steady = sync[6] - sync[2]
+    print(f"train float route ({card}): steps 3-6 {4 * BATCH / steady:.2f} QA/s, "
+          f"{1e3 * steady / 4:.2f} ms per step of {BATCH} (host clock, validation and "
+          f"checkpoint time taken out); peak device memory {peak_gib:.2f} GiB "
+          f"(max_memory_allocated)", flush=True)
+
+    _build.reset_counts()
+    resumed = vqa_main(args("train", "float_resumed", *float_route, "--model_ckpt", ckpt3))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[3:]))
+    print(f"train resume from step 3: losses {resumed['losses']} vs {losses[3:]}, max "
+          f"relative difference {rel} (tolerance {RESUME_RTOL}), launches {counts()[0]}",
+          flush=True)
+    if resumed["first_step"] != 3 or resumed["steps"] != 3 or not rel <= RESUME_RTOL:
+        raise AssertionError("the resumed run does not repeat steps 4-6")
+
+    _build.reset_counts()
+    res = vqa_main(args("test", "float", *float_route, "--model_ckpt",
+                        os.path.join(full["log_dir"], "model_6.ckpt")))
+    print(f"test mode: {res}, launches {counts()[0]}", flush=True)
+    if res["samples"] != N_VAL or not np.isfinite(res["loss"]) \
+            or counts()[0]["conv0_f"] != N_VAL // BATCH:
+        raise AssertionError("test mode did not evaluate the val file through kernel C")
+
+    _build.reset_counts()
+    int8 = vqa_main(args("train", "int8", "--opt_lvl", "1", "--int8_calib", "1",
+                         train_file=write_dataset("train_int8", 2 * BATCH, 3)))
+    launches, plain = counts()
+    print(f"train int8 route: {int8['steps']} steps, losses {int8['losses']}, launches "
+          f"{launches}, plain convs on CUDA {plain}", flush=True)
+    if int8["steps"] != 2 or not np.isfinite(int8["losses"]).all():
+        raise AssertionError("the int8-route run did not train 2 finite steps")
+    if not (launches["conv0_s2d_i8"] and launches["conv3x3_i8"]) or launches["conv0_f"] \
+            or any(plain.values()):
+        raise AssertionError("the int8 route did not run kernels A and B only")
+    if not os.path.exists(os.path.join(int8["log_dir"], "int8_calib.json")):
+        raise AssertionError("int8_calib.json was not written")
+    return full, float_launches
 
 
 def main() -> int:
@@ -279,18 +468,28 @@ def main() -> int:
         print(f"build {k.source}: {regs}", flush=True)
 
     dev = torch.device("cuda")
-    errs, times = kernel_phase(dev)
+    errs, times, bounds, library = kernel_phase(dev)
     vocab_file, pairs = write_requests()
-    predictor, launches = serve_phase(vocab_file, pairs)
+    predictor, serve_launches = serve_phase(vocab_file, pairs)
     cross_device_phase(predictor, pairs)
+    del predictor
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _, train_launches = train_phase(vocab_file, card)
+    print(f"train phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    # launches: kernels A and B from the serving path, kernel C from the
+    # float-route training run (each read just after its own run)
+    path_launches = {**serve_launches, "conv0_f": train_launches["conv0_f"]}
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": k.symbol, "route": "cuda",
          "source": os.path.relpath(os.path.join(_build.CSRC, k.source), ROOT),
-         "replaces": k.replaces, "launches": launches[k.symbol],
+         "replaces": k.replaces, "launches": path_launches[k.symbol],
          "max_abs_err": errs[k.symbol], "ms": times[k.symbol][0],
-         "plain_ms": times[k.symbol][1]} for k in _build.KERNELS]}), flush=True)
+         "plain_ms": times[k.symbol][1], "bound_ms": bounds[k.symbol][0],
+         "bound_by": bounds[k.symbol][1], "library_ms": library[k.symbol]}
+        for k in _build.KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -55,7 +55,8 @@ def _pair(weights, opt_lvl, int8, amax=()):
     jm, _ = jax_build("attention", V, K, opt_lvl=opt_lvl, int8_backbone=int8)
     if amax:
         jm = jm.clone(int8_amax=amax)
-    tm, _ = build_model("attention", V, K, opt_lvl=opt_lvl, int8_backbone=int8)
+    tm, _ = build_model("attention", V, K, opt_lvl=opt_lvl, int8_backbone=int8,
+                        device="cpu")
     tm.load_state_dict(from_jax("attention", params, stats), strict=True)
     if amax:
         tm.int8_amax = amax
@@ -69,8 +70,9 @@ def _logits(jm, jv, tm, seed=0):
     apply = jax.jit(jm.apply) if not jm.int8_stages else jm.apply
     ref = np.asarray(apply(jv, jnp.asarray(img), jnp.asarray(q), jnp.asarray(ql))
                      .astype(jnp.float32))
-    out = tm(torch.from_numpy(img), torch.from_numpy(q).long(),
-             torch.from_numpy(ql).long()).float().numpy()
+    with torch.no_grad():
+        out = tm(torch.from_numpy(img), torch.from_numpy(q).long(),
+                 torch.from_numpy(ql).long()).float().numpy()
     assert out.shape == ref.shape == (2, K)
     return ref, out
 
@@ -122,4 +124,4 @@ def test_phrase_pool_groups_adjacent_channels():
 
 def test_use_pallas_raises():
     with pytest.raises(NotImplementedError, match="retired"):
-        build_model("attention", V, K, use_pallas=True)
+        build_model("attention", V, K, use_pallas=True, device="cpu")

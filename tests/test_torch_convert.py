@@ -53,7 +53,7 @@ def test_from_jax_equals_vqa_tpu_export(jax_attention):
 
 def test_port_model_loads_strict(jax_attention):
     params, stats = jax_attention
-    model, cfg = build_model("attention", 25, 4, opt_lvl=0)
+    model, cfg = build_model("attention", 25, 4, opt_lvl=0, device="cpu")
     assert cfg.image_size == 448
     keys = set(model.state_dict())
     sd = from_jax("attention", params, stats)
@@ -68,7 +68,7 @@ def test_save_pth_file_loads_into_port(jax_attention, tmp_path):
     params, stats = jax_attention
     path = str(tmp_path / "model.pth")
     save_pth(path, "attention", params, stats)
-    model, _ = build_model("attention", 25, 4, opt_lvl=0)
+    model, _ = build_model("attention", 25, 4, opt_lvl=0, device="cpu")
     model.load_state_dict(load_pth(path), strict=True)
     w = model.image_encoder.vgg11_encoder[25].weight.detach().numpy()
     np.testing.assert_array_equal(
@@ -80,7 +80,7 @@ def test_only_attention_is_ported():
     with pytest.raises(NotImplementedError):
         from_jax("baseline", {}, {})
     with pytest.raises(NotImplementedError):
-        build_model("baseline", 10, 3)
+        build_model("baseline", 10, 3, device="cpu")
 
 
 def _amax(seed=0):

@@ -35,6 +35,8 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     w0 = torch.from_numpy(rng.integers(-127, 128, (3, 3, 3, 64)).astype(np.int8))
     out = conv_stage1.conv0_i8(x0, w0, one, one, s1=one)
     assert tuple(out.shape) == (1, 2, 3, 64) and out.dtype == torch.int8
+    out = conv_stage1.conv0_f(x0.to(torch.bfloat16), w0.float(), one)
+    assert tuple(out.shape) == (1, 2, 3, 64) and out.dtype == torch.bfloat16
     assert all(k.launches == 0 and k.plain_on_cuda == 0 for k in _build.KERNELS)
 
 
@@ -115,7 +117,26 @@ def test_kernel_b_rejects_unsupported_channels_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_kernel_c_bit_equal_to_plain_on_card(cuda, mode):
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 36, 70, 3), generator=g).to(cuda, TORCH_DT[mode])
+    w = (torch.randn((3, 3, 3, 64), generator=g) * 0.2).to(cuda)
+    b = (torch.randn(64, generator=g) * 0.1).to(cuda)
+    _build.reset_counts()
+    out = conv_stage1.conv0_f(x, w, b)
+    assert _build.CONV0_F.launches == 1 and out.dtype == TORCH_DT[mode]
+    assert torch.equal(out, conv_stage1.conv0_f_plain(x, w, b))
+    assert _build.CONV0_F.launches == 1 and _build.CONV0_F.plain_on_cuda == 1
+
+
+@pytest.mark.cuda
 def test_float_conv0_route_raises_on_card(cuda):
-    x = torch.zeros((1, 8, 8, 3), device=cuda)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        conv_stage1.conv0_bn_relu_pool(x, torch.zeros(3, 3, 3, 64), torch.zeros(64))
+    """The float route launches kernel C, which takes only even H and W
+    and float32/bfloat16 images: anything else raises, with no fallback."""
+    w, b = torch.zeros(3, 3, 3, 64), torch.zeros(64)
+    with pytest.raises(ValueError, match="even"):
+        conv_stage1.conv0_bn_relu_pool(torch.zeros((1, 8, 9, 3), device=cuda), w, b)
+    with pytest.raises(ValueError, match="float32/bfloat16"):
+        conv_stage1.conv0_bn_relu_pool(
+            torch.zeros((1, 8, 8, 3), device=cuda, dtype=torch.float16), w, b)

@@ -130,6 +130,27 @@ def test_conv0_float_route_matches_jax_on_cpu():
     np.testing.assert_allclose(_np(out), _np(ref), rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 3), (1, 16, 48, 3)])
+def test_conv0_float_plain_matches_tpu_kernel(shape, dtype):
+    """Kernel C's plain version vs vqa_tpu's float Pallas kernel
+    (``_conv0_pallas``) in interpret mode. f32: atol 1e-5 (the two sum the
+    27 products in different orders); bf16: within 1 bf16 ulp of the output
+    (an f32 sum that differs in its last bits can round to the next bf16)."""
+    b, h, w, _ = shape
+    x, w0, b0 = _conv0_case(seed=8, b=b, h=h, w=w)
+    xj = jnp.asarray(x).astype(JAX_DT[dtype])
+    kern = j_stage1.conv0_bn_relu_pool(xj, jnp.asarray(w0), jnp.asarray(b0),
+                                       force="pallas")
+    out = t_stage1.conv0_f_plain(torch.from_numpy(x).to(TORCH_DT[dtype]),
+                                 torch.from_numpy(w0), torch.from_numpy(b0))
+    assert out.dtype == TORCH_DT[dtype] and tuple(out.shape) == (b, h // 2, w // 2, 64)
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(out), _np(kern), rtol=0, atol=1e-5)
+    else:
+        assert_within_ulp(kern, out, dtype, 0.0)
+
+
 def test_conv0_requant_handoff_matches_packed_tpu_kernel():
     """Kernel A's requant epilogue (plain version) vs vqa_tpu's
     ``_conv0_i8_packed`` in interpret mode, whose H-pair-packed output

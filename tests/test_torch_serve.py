@@ -185,7 +185,7 @@ def test_preprocess_matches_vqa_tpu(size):
 
     u8 = np.random.default_rng(size).integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)
     ref = np.asarray(jax_preprocess(jnp.asarray(u8), size))
-    out = preprocess_images(u8, size).numpy()
+    out = preprocess_images(u8, size, device="cpu").numpy()
     assert out.shape == ref.shape == (2, size, size, 3) and out.dtype == np.float32
     if size == 64:
         np.testing.assert_array_equal(out, ref)

@@ -75,7 +75,7 @@ def _jax_encoder(params, stats, dtype, amax=()):
 
 def _port_encoder(params, stats, dtype):
     model, _ = build_model("attention", 20, 4, opt_lvl=0 if dtype == torch.float32 else 1,
-                           int8_backbone=True)
+                           int8_backbone=True, device="cpu")
     model.load_state_dict(from_jax("attention", params, stats), strict=True)
     return model
 
@@ -138,7 +138,7 @@ def test_float_backbone_matches(weights):
     enc = JaxImageEncoder(conv0_pallas=True)
     ref = np.asarray(enc.apply({"params": params["image_encoder"],
                                 "batch_stats": stats["image_encoder"]}, jnp.asarray(x)))
-    model, _ = build_model("attention", 20, 4, opt_lvl=0)
+    model, _ = build_model("attention", 20, 4, opt_lvl=0, device="cpu")
     assert model.int8_stages == ()
     model.load_state_dict(from_jax("attention", params, stats), strict=True)
     out = model.image_encoder(torch.from_numpy(x)).numpy()
@@ -162,7 +162,7 @@ ROUTING_CASES = [
     f"{k}={v}" for k, v in kw.items()))
 def test_build_model_routes_like_vqa_tpu(kw):
     jm, jcfg = jax_build("attention", 12, 3, **kw)
-    tm, tcfg = build_model("attention", 12, 3, **kw)
+    tm, tcfg = build_model("attention", 12, 3, device="cpu", **kw)
     assert tcfg == jcfg or tcfg.__dict__ == jcfg.__dict__
     vgg = tm.vgg
     for field in ("int8_stages", "conv0_pallas", "hpack_pool", "fused_stem",
@@ -181,4 +181,4 @@ def test_classifier_head_and_batch_stats_not_ported():
     with pytest.raises(NotImplementedError):
         VGG11Encoder(include_head=True)
     with pytest.raises(NotImplementedError):
-        build_model("attention", 12, 3, vgg_trainable=True)
+        build_model("attention", 12, 3, vgg_trainable=True, device="cpu")

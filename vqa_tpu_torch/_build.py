@@ -123,7 +123,14 @@ CONV3X3_I8 = CudaKernel(
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     replaces="vqa_tpu/ops/conv_hpack.py:104 (_kernel)")
 
-KERNELS = (CONV0_S2D_I8, CONV3X3_I8)
+CONV0_F = CudaKernel(
+    "conv0_f.cu", "conv0_f",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    replaces="vqa_tpu/ops/conv_stage1.py:111 (_kernel), "
+             "vqa_tpu/ops/conv_stage1.py:178 (_kernel_v2), "
+             "vqa_tpu/ops/conv_stage1.py:209 (_kernel_wide)")
+
+KERNELS = (CONV0_S2D_I8, CONV3X3_I8, CONV0_F)
 
 
 def build_all() -> None:

@@ -22,6 +22,31 @@ from dataclasses import dataclass, field
 import torch
 
 
+def str2bool(v: str) -> bool:
+    """'true' / 'false' flag values, as the reference's CLI takes them."""
+    v = v.lower()
+    if v not in ("true", "false"):
+        raise ValueError(f"expected 'true' or 'false', got {v!r}")
+    return v == "true"
+
+
+def int_min_two(k) -> int:
+    k = int(k)
+    if k < 2:
+        raise ValueError("Ensure k >= 2")
+    return k
+
+
+def resolve_device(device: str | torch.device) -> torch.device:
+    """The torch device for ``--device``; 'cuda' without a card raises
+    instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available (pass "
+                           "--device cpu to run on the CPU)")
+    return dev
+
+
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
@@ -49,7 +74,7 @@ def compute_dtype_for_opt_lvl(opt_lvl: int) -> torch.dtype:
 
 
 def build_model(model_name: str, vocab_size: int, num_classes: int, *,
-                device: str | torch.device = "cpu",
+                device: str | torch.device = "cuda",
                 vgg_trainable: bool = False, opt_lvl: int = 1,
                 use_pallas: bool = False, s2d_first: bool = False,
                 conv0_pallas: bool | None = None,

@@ -1,1 +1,1 @@
-"""Data layer of the port: device-side image preprocess."""
+"""Data layer of the port: image decode, dataset, loader, device preprocess."""

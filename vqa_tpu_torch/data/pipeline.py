@@ -1,6 +1,17 @@
-"""Device-side image preprocess (port of ``preprocess_images``,
-vqa_tpu/data/pipeline.py:37-58).
+"""Input pipeline: batch loader, host decode threads, device preprocess
+(port of vqa_tpu/data/pipeline.py).
 
+:class:`DataLoader` (vqa_tpu/data/pipeline.py:61-218) assembles batches on
+a background thread: pre-tokenized question arrays (``VQASamples``) plus
+images decoded by a thread pool, pushed onto a bounded queue. The epoch
+order is vqa_tpu's, a pure function of ``(seed, epoch)``, so a run resumed
+with ``set_epoch(epoch, skip_batches)`` sees the batches an uninterrupted
+run would. With ``pin_memory`` the producer thread also copies each image
+batch into pinned host memory, so the H2D copy in :func:`device_batch` is
+an asynchronous DMA. The feature cache, sharding over hosts and the native
+decoders are not ported yet and raise.
+
+:func:`preprocess_images` (vqa_tpu/data/pipeline.py:37-58), on the device:
 uint8 [B, H, W, 3] -> /255 -> ImageNet normalize, on the target device. A
 resize runs only when the sizes differ (bilinear, antialiased, as
 ``jax.image.resize`` is on a downscale); serving decodes straight to the
@@ -17,11 +28,18 @@ rounded, so the CPU and the card give the same bits.
 
 from __future__ import annotations
 
+import queue
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.quant import const
+from .dataset import VQASamples
+from .images import decode_batch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -30,10 +48,12 @@ _INV_STD = tuple(float(np.float32(1.0) / np.float32(s)) for s in IMAGENET_STD)
 
 
 def preprocess_images(raw_uint8, image_size: int, compute_dtype=torch.float32,
-                      device="cpu") -> torch.Tensor:
+                      device="cuda") -> torch.Tensor:
     """uint8 [B, H, W, 3] (numpy or tensor) -> normalized [B, S, S, 3]."""
-    x = torch.as_tensor(np.asarray(raw_uint8) if not isinstance(raw_uint8, torch.Tensor)
-                        else raw_uint8).to(device)
+    x = raw_uint8 if isinstance(raw_uint8, torch.Tensor) \
+        else torch.from_numpy(np.asarray(raw_uint8))
+    # non_blocking: an asynchronous DMA when the loader pinned the batch
+    x = x.to(device, non_blocking=True)
     mean = const(IMAGENET_MEAN, x.device)
     b, h, w, c = x.shape
     if (h, w) != (image_size, image_size):
@@ -48,8 +68,168 @@ def preprocess_images(raw_uint8, image_size: int, compute_dtype=torch.float32,
 
 
 def make_image_preprocessor(image_size: int, compute_dtype=torch.float32,
-                            device="cpu"):
+                            device="cuda"):
     """Bind the static arguments of :func:`preprocess_images`."""
     def fn(raw_uint8):
         return preprocess_images(raw_uint8, image_size, compute_dtype, device)
     return fn
+
+
+class DataLoader:
+    """Shuffling, prefetching batch loader over :class:`VQASamples`.
+
+    Yields dicts ``{image: uint8 [B,S,S,3], question: int32 [B,L],
+    ques_len: int32 [B], label: int32 [B]}``; ``image`` is a numpy array,
+    or a pinned uint8 tensor with ``pin_memory``, and the rest are numpy.
+    Same arguments as vqa_tpu's loader; ``decode_backend`` takes 'auto' or
+    'pil', and ``feature_cache`` or ``num_shards > 1`` raise (not ported).
+    """
+
+    def __init__(self, samples: VQASamples, batch_size: int, *, host_size: int,
+                 shuffle: bool = True, drop_last: bool = True, num_workers: int = 4,
+                 seed: int = 0, synthetic_images: bool = False, prefetch: int = 2,
+                 shard_index: int = 0, num_shards: int = 1,
+                 decode_backend: str = "auto", feature_cache=None,
+                 pin_memory: bool = False):
+        if feature_cache is not None:
+            raise NotImplementedError("the feature cache is not ported yet "
+                                      "(ROADMAP.md queue 1 item 6)")
+        if num_shards != 1 or shard_index != 0:
+            raise NotImplementedError("sharding the data over hosts is not "
+                                      "ported yet (ROADMAP.md queue 1 item 8)")
+        self.samples = samples
+        self.batch_size = batch_size
+        self.host_size = host_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.synthetic_images = synthetic_images
+        self.prefetch = max(1, prefetch)
+        self.decode_backend = decode_backend
+        self.pin_memory = pin_memory
+        self._epoch = 0
+        self._skip_batches = 0
+        self._pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
+
+    def __len__(self) -> int:
+        n = len(self.samples)
+        if self.drop_last:
+            return n // self.batch_size
+        return -(-n // self.batch_size)
+
+    def set_epoch(self, epoch: int, skip_batches: int = 0) -> None:
+        """Position the shuffle sequence at ``epoch``; the next iteration
+        (only) skips its first ``skip_batches`` batches, the ones an
+        interrupted run already trained on, without decoding them."""
+        self._epoch = int(epoch)
+        self._skip_batches = int(skip_batches)
+
+    def _epoch_order(self) -> np.ndarray:
+        order = np.arange(len(self.samples))
+        if self.shuffle:
+            rng = np.random.default_rng((self.seed, self._epoch))
+            rng.shuffle(order)
+        return order
+
+    def _make_batch(self, idx: np.ndarray) -> dict:
+        paths = [self.samples.image_path(i) for i in idx]
+        images = decode_batch(paths, self.host_size, pool=self._pool,
+                              synthetic_fallback=self.synthetic_images,
+                              backend=self.decode_backend)
+        if self.pin_memory:
+            images = torch.from_numpy(images).pin_memory()
+        return {
+            "image": images,
+            "question": self.samples.questions[idx],
+            "ques_len": self.samples.ques_len[idx],
+            "label": self.samples.labels[idx],
+        }
+
+    def __iter__(self):
+        order = self._epoch_order()
+        self._epoch += 1
+        bs = self.batch_size
+        n_full = len(order) // bs
+        starts = [i * bs for i in range(n_full)]
+        if not self.drop_last and n_full * bs < len(order):
+            starts.append(n_full * bs)
+        if self._skip_batches:
+            starts = starts[self._skip_batches:]
+            self._skip_batches = 0
+
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put_or_stop(item) -> bool:
+            # a bounded put that gives up once the consumer is gone, so an
+            # abandoned iterator never leaves this thread blocked
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for s in starts:
+                    if not put_or_stop(self._make_batch(order[s:s + bs])):
+                        return
+            except BaseException as e:  # surface it to the consumer, not as
+                put_or_stop(e)          # a clean end of the epoch
+                return
+            put_or_stop(None)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    break
+                if isinstance(batch, BaseException):
+                    raise batch
+                yield batch
+        finally:
+            stop.set()
+            t.join(timeout=10.0)
+
+    def close(self) -> None:
+        if self._pool is not None:
+            self._pool.shutdown(wait=True)
+
+
+def device_batch(batch: dict, preprocess, device) -> dict:
+    """Host batch -> device batch: the image through ``preprocess`` (H2D +
+    normalize on ``device``), the int arrays as int64 tensors there."""
+    out = {k: torch.from_numpy(np.asarray(batch[k])).long().to(device, non_blocking=True)
+           for k in ("question", "ques_len", "label")}
+    out["image"] = preprocess(batch["image"])
+    return out
+
+
+def device_prefetch(batch_iter, prepare_batch, depth: int = 2):
+    """Map ``prepare_batch`` over ``batch_iter`` ``depth`` batches ahead
+    (vqa_tpu/data/pipeline.py:221-252): the H2D copies and preprocess of
+    the next batches are enqueued on the stream before the current step's
+    kernels, so the host never waits on them. ``depth <= 1`` maps lazily."""
+    it = iter(batch_iter)
+    if depth <= 1:
+        for batch in it:
+            yield prepare_batch(batch)
+        return
+    pending = deque()
+
+    def fill():
+        while len(pending) < depth:
+            try:
+                pending.append(prepare_batch(next(it)))
+            except StopIteration:
+                return
+
+    fill()
+    while pending:
+        out = pending.popleft()
+        fill()
+        yield out

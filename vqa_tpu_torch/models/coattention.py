@@ -14,6 +14,13 @@ Precision: under the bf16 policy the question tower, co-attention and head
 run under ``torch.autocast(bfloat16)``, with activations cast to bf16 where
 the JAX package casts them; both softmaxes of the co-attention and the final
 softmax run in fp32.
+
+Training: the question tower, co-attention and head are trainable (fp32
+parameters). The VGG is frozen: it runs under ``no_grad`` and its
+parameters have ``requires_grad=False``, the counterpart of vqa_tpu's
+``stop_gradient`` on the tower output (coattention.py:98-100) and its
+``set_to_zero`` optimizer label (train/state.py:48-55). Inference callers
+wrap the forward in ``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -156,7 +163,8 @@ class HierarchicalCoAttentionNet(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         if vgg_trainable:
-            raise NotImplementedError("a trainable VGG (training) is not ported yet")
+            raise NotImplementedError("a trainable VGG (batch-stats BatchNorm) is not "
+                                      "ported yet (ROADMAP.md queue 1 item 2)")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.dtype = dtype
@@ -169,6 +177,7 @@ class HierarchicalCoAttentionNet(nn.Module):
             int8_handoff=int8_handoff)
         self.co_attention = ParallelCoAttention(hidden_dim, generator)
         self.mlp_classify = MLPClassifier(hidden_dim, mlp_dim, K, generator)
+        self.image_encoder.requires_grad_(False)
 
     @property
     def vgg(self) -> VGG11Encoder:
@@ -191,11 +200,11 @@ class HierarchicalCoAttentionNet(nn.Module):
             return contextlib.nullcontext()
         return torch.autocast(device.type, dtype=self.dtype)
 
-    @torch.no_grad()
     def forward(self, x_img: torch.Tensor, x_ques: torch.Tensor,
                 x_ques_lens: torch.Tensor):
         """x_img [B, H, W, 3] normalized, ids [B, L], lengths [B] -> logits [B, K]."""
-        # the VGG casts explicitly (its int8 ops must not be autocast)
+        # the VGG casts explicitly (its int8 ops must not be autocast) and
+        # runs without autograd (frozen)
         feats = self.image_encoder(x_img)
         with self._autocast(x_img.device):
             x_word, x_phrase, x_sentence = self.question_encoder(x_ques, x_ques_lens)

@@ -1,16 +1,21 @@
-"""VGG stage 1 (conv 3 -> 64 + folded BN + ReLU + 2x2 maxpool), int8.
+"""VGG stage 1 (conv 3 -> 64 + folded BN + ReLU + 2x2 maxpool).
 
-Port of the int8 part of vqa_tpu/ops/conv_stage1.py. The TPU kernel
-(``_kernel_i8``) feeds the MXU a space-to-depth K=108 dot; on the H100 the
-stage is bound by bytes, not MACs, so kernel A (``csrc/conv0_s2d_i8.cu``)
-runs a direct 3x3 conv over the four pool phases with ``__dp4a`` and the
-same int32 sums. Quantizing the image stays plain PyTorch, as the JAX
-package leaves it to XLA.
+Port of vqa_tpu/ops/conv_stage1.py. The TPU kernels feed the MXU a
+space-to-depth K=108 dot; on the H100 a direct 3x3 conv over the four pool
+phases gives the same sums:
 
-:func:`conv0_i8` is the kernel's wrapper: a CUDA tensor launches kernel A
-(or raises), a CPU tensor runs :func:`conv0_i8_plain`, the same arithmetic
-as separate eager ops. The float route (int8 off) is the TPU kernel
-``_kernel`` and has no CUDA kernel yet: on the card it raises.
+- int8 route: kernel A (``csrc/conv0_s2d_i8.cu``, ``__dp4a``, the int32 sums
+  of ``_kernel_i8``). Quantizing the image stays plain PyTorch, as the JAX
+  package leaves it to XLA. :func:`conv0_i8` is its wrapper.
+- float route (int8 off): kernel C (``csrc/conv0_f.cu``), the port of
+  ``_kernel`` / ``_kernel_v2`` / ``_kernel_wide``. :func:`conv0_f` is its
+  wrapper.
+
+Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
+plain version (:func:`conv0_i8_plain`, :func:`conv0_f_plain`, the same
+arithmetic as separate eager ops) for a CPU tensor. No autograd: the JAX
+package stop-gradients these kernels' inputs (vqa_tpu/models/vgg.py:
+276-277), and the port's VGG runs under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .._build import CONV0_S2D_I8
+from .._build import CONV0_F, CONV0_S2D_I8
 from .quant import activation_quant, epilogue, int_conv3x3, weight_quant
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -87,11 +92,64 @@ def conv0_i8(x_q, w_q, scale, bias, *, out_dtype=torch.float32, s1=None):
     return out
 
 
-def _reference(x, w, b):
-    """conv3x3(pad 1) + bias + ReLU + maxpool2x2 in x.dtype (the float route)."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w.to(x.dtype).permute(3, 2, 0, 1),
-                 b.to(x.dtype), padding=1)
-    return F.max_pool2d(torch.relu(y), 2).permute(0, 2, 3, 1).contiguous()
+def _float_operands(x, w, b):
+    """Kernel C's operands: the weights [3,3,3,64] as [27, 64] and the bias
+    [64], each rounded to x.dtype (as vqa_tpu/models/vgg.py:249 and
+    conv_stage1.py:292-297 do) and widened to f32."""
+    dev = x.device
+    w32 = w.to(dev, x.dtype).float().reshape(27, -1).contiguous()
+    b32 = b.to(dev, x.dtype).float().contiguous()
+    return w32, b32
+
+
+def conv0_f_plain(x, w, b):
+    """Kernel C's arithmetic in plain PyTorch, the float route's reference.
+
+    The 27 products (x.dtype operands widened to f32, separate f32
+    multiplies) are summed into f32 in one fixed order, taps (kh, kw, c)
+    row-major, starting from zero; the 2x2 pool is a max over the f32 sums;
+    then + b (b rounded to x.dtype), ReLU, one rounding to x.dtype. That
+    order is the HWIO weight layout read front to back and needs no
+    reduction tree, so a CUDA thread can follow it step for step with
+    ``__fadd_rn(acc, __fmul_rn(x, w))`` and the two are bit-equal on the
+    card. It differs from vqa_tpu's CPU fallback ``_xla_reference``, which
+    rounds the conv to x.dtype before the bias.
+    """
+    if x.is_cuda:
+        CONV0_F.plain_on_cuda += 1
+    bsz, h, wd, c = x.shape
+    w32, b32 = _float_operands(x, w, b)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    acc = torch.zeros((bsz, h, wd, w32.shape[1]), dtype=torch.float32, device=x.device)
+    for kh in range(3):
+        for kw in range(3):
+            for ci in range(c):
+                acc = acc + xp[:, kh:kh + h, kw:kw + wd, ci:ci + 1] * w32[(kh * 3 + kw) * c + ci]
+    m = acc.reshape(bsz, h // 2, 2, wd // 2, 2, -1).amax(dim=(2, 4))
+    return torch.relu(m + b32).to(x.dtype)
+
+
+def conv0_f(x, w, b):
+    """Float conv3x3 (pad 1, C_in 3 -> 64) + bias + ReLU + 2x2 maxpool.
+
+    ``x`` NHWC [B, H, W, 3] float32 or bfloat16 (H, W even); ``w`` HWIO
+    [3, 3, 3, 64] and ``b`` [64], BN-folded, any float dtype (rounded to
+    x.dtype). Returns [B, H/2, W/2, 64] in x.dtype.
+    """
+    if not x.is_cuda:
+        return conv0_f_plain(x, w, b)
+    bsz, h, wd, c = x.shape
+    if x.dtype not in _MODES or c != 3 or tuple(w.shape) != (3, 3, 3, 64):
+        raise ValueError(f"conv0_f: need float32/bfloat16 x [B,H,W,3] and w [3,3,3,64], "
+                         f"got x{tuple(x.shape)} {x.dtype} w{tuple(w.shape)}")
+    if h % 2 or wd % 2:
+        raise ValueError(f"conv0_f: H and W must be even, got {h}x{wd}")
+    x = x.contiguous()
+    w32, b32 = _float_operands(x, w, b)
+    out = torch.empty((bsz, h // 2, wd // 2, 64), dtype=x.dtype, device=x.device)
+    CONV0_F.launch(x.data_ptr(), w32.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                   bsz, h, wd, _MODES[x.dtype])
+    return out
 
 
 def conv0_bn_relu_pool(x, w, b, *, int8: bool = False, s_x=None):
@@ -100,15 +158,11 @@ def conv0_bn_relu_pool(x, w, b, *, int8: bool = False, s_x=None):
     x [B, H, W, C], w [3, 3, C, O], b [O] -> [B, H/2, W/2, O] in x.dtype.
     ``int8``: quantize exactly as vqa_tpu's ``_xla_reference_i8`` (``s_x``:
     tuple = static per-input-channel, float = static per-tensor, None =
-    dynamic per-batch amax) and run kernel A on the card.
+    dynamic per-batch amax) and run kernel A on the card; otherwise kernel
+    C's float route.
     """
     if not int8:
-        if x.is_cuda:
-            raise NotImplementedError(
-                "the float conv0 kernel (vqa_tpu/ops/conv_stage1.py:_kernel) is "
-                "not ported to CUDA yet: serve with the int8 backbone "
-                "(--opt_lvl >= 1 or --int8_backbone true)")
-        return _reference(x, w, b)
+        return conv0_f(x, w, b)
     x_q, s_c, s_out = activation_quant(x, s_x)
     w32 = w.float()
     if s_c is not None:

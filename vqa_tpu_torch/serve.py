@@ -12,8 +12,8 @@ With int8 stages, static scales resolve in this order: ``--calib_file``,
 then the checkpoint's ``int8_calib.json`` sidecar, then the first request
 batch. ``--device cuda`` (the default) needs a card and never falls back to
 the CPU; the CPU runs only with an explicit ``--device cpu``. The data
-contract (text, vocab, image decode) is vqa_tpu's own modules, which import
-no JAX.
+contract (text, vocab, image decode) is the port's copy of vqa_tpu's
+(``vqa_tpu_torch.{text,vocab,data.images}``).
 
 Not ported yet: ``--from_export`` / ``--export_to`` and native ``.ckpt``
 checkpoints (a reference-format ``.pth`` loads).
@@ -30,21 +30,12 @@ import time
 import numpy as np
 import torch
 
-from vqa_tpu.data.images import decode_batch
-from vqa_tpu.text import pad_sequences, preprocess_text
-from vqa_tpu.vocab import UNK_TOKEN, Vocab
-
-from .config import build_model
+from .config import build_model, resolve_device
+from .data.images import decode_batch
 from .data.pipeline import make_image_preprocessor
 from .models.convert import load_pth
-
-
-def _resolve_device(device: str) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available (pass "
-                           "--device cpu to run on the CPU)")
-    return dev
+from .text import pad_sequences, preprocess_text
+from .vocab import UNK_TOKEN, Vocab
 
 
 class VQAPredictor:
@@ -62,7 +53,7 @@ class VQAPredictor:
         self.model_name = model_name
         self.batch_size = batch_size
         self.synthetic_images = synthetic_images
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self._needs_calib = False
         self.calibrated_on_batch = None     # 1-based batch index, if any
         self.batch_seconds: list[float] = []
@@ -131,6 +122,7 @@ class VQAPredictor:
                         [images_u8], log=lambda s: None)
         self._needs_calib = False
 
+    @torch.no_grad()
     def _probs(self, images_u8, ids, lens) -> np.ndarray:
         dev = self.device
         logits = self.model(self.preprocess(images_u8),

@@ -1,1 +1,1 @@
-"""Serving-side training utilities of the port (int8 calibration)."""
+"""Training of the port: state, steps, checkpoints, int8 calibration, logging."""
