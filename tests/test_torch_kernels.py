@@ -7,8 +7,10 @@ On a machine with a card and nvcc, run the card tests with
 
 (``--noconftest``: the suite's conftest sets up JAX). There each kernel mode
 must equal its plain version bit for bit, at odd shapes that exercise the
-tile edges. Without a card those tests skip; the dispatch contract below
-runs everywhere.
+tile edges, except kernel C in bf16, which sums on the tensor cores in
+another order and is held within ``conv_stage1.conv0_f_bound``. Without a
+card those tests skip; the dispatch contract, the weight layouts and the
+soundness of that bound run everywhere.
 """
 
 import os
@@ -16,6 +18,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from vqa_tpu_torch import _build
 from vqa_tpu_torch.ops import conv_hpack, conv_stage1
@@ -66,6 +69,99 @@ def test_kernels_name_their_sources_and_tpu_counterparts():
                 assert "def _kernel" in f.readlines()[int(line) - 1]
 
 
+def test_kernel_b_weight_layout_matches_index_formula():
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 64, 192)).astype(np.int8))
+    wp = conv_hpack.pack_conv3x3_weights(w)
+    assert tuple(wp.shape) == (2, 2, 9, 16, 2, 8, 16) and wp.is_contiguous()
+    k, p, t, n, h, r, i = (torch.from_numpy(rng.integers(0, m, 2000))
+                           for m in (2, 2, 9, 16, 2, 8, 16))
+    o = 128 * p + 8 * n + r                  # channels 192..255 are padding
+    want = torch.where(o < 192, w[t // 3, t % 3, 32 * k + 16 * h + i, o.clamp(max=191)], 0)
+    assert bool((o >= 192).any()) and torch.equal(wp[k, p, t, n, h, r, i], want.to(torch.int8))
+
+
+def test_kernel_a_weight_layout_matches_index_formula():
+    rng = np.random.default_rng(6)
+    w = torch.from_numpy(rng.integers(-127, 128, (3, 3, 3, 64)).astype(np.int8))
+    w4 = conv_stage1.pack_conv0_i8_weights(w).view(torch.int8).reshape(9, 64, 4)
+    for t in range(9):
+        for c in range(4):
+            want = w[t // 3, t % 3, c] if c < 3 else torch.zeros(64, dtype=torch.int8)
+            assert torch.equal(w4[t, :, c], want)
+
+
+def _requant_as_kernel_b(y, s):
+    """Kernel B's int8 requant (csrc/conv3x3_i8.cu ``stage`` with
+    ``needs_division`` and its division fallback) in float32 numpy, whose
+    operations round to nearest like the CUDA intrinsics."""
+    with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
+        normal = (s >= np.float32(2.0 ** -120)) & (s <= np.float32(2.0 ** 120))
+        inv = np.where(normal, np.float32(1) / s, np.float32(np.nan))
+        q = y * inv
+        slow = ~(q >= np.float32(128.5)) & ~(
+            np.abs(q - np.rint(q)) < np.float32(0.5) - np.float32(2.0 ** -14))
+        fast = np.where(q >= np.float32(128.5), np.float32(127), np.clip(np.rint(q), -127, 127))
+        exact = np.clip(np.rint(y / s), -127, 127)
+    return np.where(slow, exact, fast), exact
+
+
+def test_kernel_b_requant_reciprocal_path_equals_division():
+    """The reciprocal path of kernel B's requant gives clip(rint(y / s)) for
+    every y, s: random values, quotients a few ulps from each half-integer
+    and from 128.5, saturated and tiny ones."""
+    rng = np.random.default_rng(7)
+    n = 400_000
+    s = (rng.random(n) * 0.02 + 1e-3).astype(np.float32)
+    halves = (rng.integers(-130, 131, n) + 0.5).astype(np.float32)
+    y_near = (halves * s).astype(np.float32)
+    steps = rng.integers(-64, 65, n).astype(np.float32)
+    y_near = (y_near + steps * np.spacing(y_near)).astype(np.float32)
+    y_rand = (rng.random(n) * 3.0).astype(np.float32)
+    y_wide = (10.0 ** rng.uniform(-40, 38, n)).astype(np.float32)
+    s_wide = (10.0 ** rng.uniform(-39, 38, n)).astype(np.float32)
+    for y, sc in ((y_near, s), (y_rand, s), (y_wide, s), (y_rand, s_wide), (y_wide, s_wide)):
+        got, want = _requant_as_kernel_b(y.astype(np.float32), sc)
+        assert np.array_equal(got, want)
+
+
+def _conv0_bf16_in_order(x, w, b, order):
+    """``conv0_f_plain`` with its 27 exact f32 products summed in another
+    order: ``reversed`` taps, or a ``pairwise`` tree."""
+    bsz, h, wd, c = x.shape
+    w32 = w.to(x.dtype).float().reshape(27, -1)
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
+    prods = [xp[:, kh:kh + h, kw:kw + wd, ci:ci + 1] * w32[(kh * 3 + kw) * c + ci]
+             for kh in range(3) for kw in range(3) for ci in range(c)]
+    if order == "reversed":
+        acc = torch.zeros_like(prods[0])
+        for p in reversed(prods):
+            acc = acc + p
+    else:
+        while len(prods) > 1:
+            prods = [prods[i] + prods[i + 1] if i + 1 < len(prods) else prods[i]
+                     for i in range(0, len(prods), 2)]
+        acc = prods[0]
+    m = acc.reshape(bsz, h // 2, 2, wd // 2, 2, -1).amax(dim=(2, 4))
+    return torch.relu(m + b.to(x.dtype).float()).to(x.dtype)
+
+
+@pytest.mark.parametrize("order", ["reversed", "pairwise"])
+def test_kernel_c_bf16_bound_covers_other_summation_orders(order):
+    """The bound that holds kernel C's bf16 mode (tensor-core order) holds
+    the plain version summed in other orders too, at (2, 36, 70, 3)."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn((2, 36, 70, 3), generator=g).to(torch.bfloat16)
+    w = torch.randn((3, 3, 3, 64), generator=g) * 0.2
+    b = torch.randn(64, generator=g) * 0.1
+    ref = conv_stage1.conv0_f_plain(x, w, b)
+    other = _conv0_bf16_in_order(x, w, b, order)
+    diff = (other.float() - ref.float()).abs()
+    bound = conv_stage1.conv0_f_bound(x, w, ref)
+    assert bool((diff <= bound).all()), float((diff - bound).max())
+    assert float(bound.max()) < 0.05 * float(ref.float().abs().max())
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -90,16 +186,26 @@ def test_kernel_a_bit_equal_to_plain_on_card(cuda, mode):
     assert _build.CONV0_S2D_I8.launches == 1 and _build.CONV0_S2D_I8.plain_on_cuda == 1
 
 
+# (C_in, C_out): every VGG conv1-7 pair, a C_in that is not a multiple of
+# 64, a single chunk, and C_out % 128 == 64 (a block's last 64 channels are
+# zero padding, never stored)
+KERNEL_B_CHANNELS = [(64, 128), (128, 256), (256, 256), (256, 512), (512, 512),
+                     (96, 128), (32, 64), (64, 192)]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(13, 22), (7, 9)])
+@pytest.mark.parametrize("channels", KERNEL_B_CHANNELS)
 @pytest.mark.parametrize("pool", [False, True])
 @pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
-def test_kernel_b_bit_equal_to_plain_on_card(cuda, mode, pool):
+def test_kernel_b_bit_equal_to_plain_on_card(cuda, mode, pool, channels, hw):
+    c, o = channels
     g = torch.Generator().manual_seed(1)
-    x = torch.randint(-127, 128, (2, 13, 22, 96), generator=g, dtype=torch.int8).to(cuda)
-    w = torch.randint(-127, 128, (3, 3, 96, 128), generator=g, dtype=torch.int8).to(cuda)
-    sc = (torch.rand(128, generator=g) * 1e-5 + 1e-6).to(cuda)
-    b = (torch.randn(128, generator=g) * 0.1).to(cuda)
-    kw = ({"s_next": (torch.rand(128, generator=g) * 0.02 + 1e-3).to(cuda)}
+    x = torch.randint(-127, 128, (2, *hw, c), generator=g, dtype=torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (3, 3, c, o), generator=g, dtype=torch.int8).to(cuda)
+    sc = (torch.rand(o, generator=g) * 1e-5 + 1e-6).to(cuda)
+    b = (torch.randn(o, generator=g) * 0.1).to(cuda)
+    kw = ({"s_next": (torch.rand(o, generator=g) * 0.02 + 1e-3).to(cuda)}
           if mode == "int8" else {"out_dtype": TORCH_DT[mode]})
     _build.reset_counts()
     out = conv_hpack.int8_conv3x3(x, w, sc, b, pool=pool, **kw)
@@ -118,7 +224,8 @@ def test_kernel_b_rejects_unsupported_channels_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
-def test_kernel_c_bit_equal_to_plain_on_card(cuda, mode):
+def test_kernel_c_matches_plain_on_card(cuda, mode):
+    """f32: bit-equal. bf16: within ``conv0_f_bound`` (tensor-core order)."""
     g = torch.Generator().manual_seed(2)
     x = torch.randn((2, 36, 70, 3), generator=g).to(cuda, TORCH_DT[mode])
     w = (torch.randn((3, 3, 3, 64), generator=g) * 0.2).to(cuda)
@@ -126,8 +233,35 @@ def test_kernel_c_bit_equal_to_plain_on_card(cuda, mode):
     _build.reset_counts()
     out = conv_stage1.conv0_f(x, w, b)
     assert _build.CONV0_F.launches == 1 and out.dtype == TORCH_DT[mode]
-    assert torch.equal(out, conv_stage1.conv0_f_plain(x, w, b))
+    ref = conv_stage1.conv0_f_plain(x, w, b)
     assert _build.CONV0_F.launches == 1 and _build.CONV0_F.plain_on_cuda == 1
+    if mode == "float32":
+        assert torch.equal(out, ref)
+    else:
+        diff = (out.float() - ref.float()).abs()
+        assert bool((diff <= conv_stage1.conv0_f_bound(x, w, ref)).all())
+
+
+@pytest.mark.cuda
+def test_kernels_repeat_bit_for_bit_on_card(cuda):
+    """Two launches of each kernel on the same inputs give the same bits
+    (no atomics, no split sums): resumed training stays exact."""
+    g = torch.Generator().manual_seed(3)
+    x0 = torch.randint(-127, 128, (2, 36, 70, 3), generator=g, dtype=torch.int8).to(cuda)
+    w0 = torch.randint(-127, 128, (3, 3, 3, 64), generator=g, dtype=torch.int8).to(cuda)
+    x1 = torch.randint(-127, 128, (2, 13, 22, 128), generator=g, dtype=torch.int8).to(cuda)
+    w1 = torch.randint(-127, 128, (3, 3, 128, 256), generator=g, dtype=torch.int8).to(cuda)
+    xf = torch.randn((2, 36, 70, 3), generator=g).to(cuda, torch.bfloat16)
+    wf = (torch.randn((3, 3, 3, 64), generator=g) * 0.2).to(cuda)
+    s64, s256 = torch.full((64,), 1e-4, device=cuda), torch.full((256,), 1e-6, device=cuda)
+    calls = [lambda: conv_stage1.conv0_i8(x0, w0, s64, s64, out_dtype=torch.bfloat16),
+             lambda: conv_hpack.int8_conv3x3(x1, w1, s256, s256, pool=True,
+                                             out_dtype=torch.bfloat16),
+             lambda: conv_stage1.conv0_f(xf, wf, s64)]
+    _build.reset_counts()
+    for call in calls:
+        assert torch.equal(call(), call())
+    assert all(k.launches == 2 for k in _build.KERNELS)
 
 
 @pytest.mark.cuda

@@ -3,9 +3,10 @@
 Port of the int8 part of vqa_tpu/ops/conv_hpack.py. The TPU kernel packs H
 row pairs onto lanes so its dots contract full 128-lane K; that is a TPU
 layout trick, and here the input stays plain NHWC int8. Kernel B
-(``csrc/conv3x3_i8.cu``) is the one int8 conv of the port: it runs this
-pooled stage (conv1 in the calibration pass), the static-path conv1 after
-the fused stem, and conv2-7, which the JAX package leaves to XLA's int8 conv.
+(``csrc/conv3x3_i8.cu``, an implicit GEMM on the int8 tensor cores) is the
+one int8 conv of the port: it runs this pooled stage (conv1 in the
+calibration pass), the static-path conv1 after the fused stem, and conv2-7,
+which the JAX package leaves to XLA's int8 conv.
 
 :func:`int8_conv3x3` is the kernel's wrapper: a CUDA tensor launches kernel
 B (or raises), a CPU tensor runs :func:`int8_conv3x3_plain`. Pooling the
@@ -70,11 +71,32 @@ def int8_conv3x3(x_q, w_q, scale, bias, *, pool: bool, s_next=None,
                          f"O % 64 == 0, got C={c} O={o}")
     if s_next is None and out_dtype not in _MODES:
         raise ValueError(f"int8_conv3x3: out_dtype {out_dtype} not supported")
+    return launch_int8_conv3x3(x_q.contiguous(), pack_conv3x3_weights(w_q.to(x_q.device)),
+                               scale, bias, pool=pool, s_next=s_next, out_dtype=out_dtype)
+
+
+def pack_conv3x3_weights(w_q):
+    """Kernel B's weight layout: HWIO int8 [3, 3, C, O] -> [C/32, P, 9, 16, 2,
+    8, 16], P = ceil(O / 128), O zero-padded to 128 P:
+    ``wp[k, p, t, n, h, r, i] = w_q[t // 3, t % 3, 32 k + 16 h + i, 128 p + 8 n + r]``.
+    ``wp[k, p]``, the 32-channel chunk k of the block of output channels p,
+    is 36,864 contiguous bytes that the kernel fetches with one bulk copy,
+    already in the order wgmma reads as its B operand (core matrices of 8
+    output channels x 16 bytes of K)."""
+    kh, kw, c, o = w_q.shape
+    op = -(-o // 128) * 128
+    w9 = F.pad(w_q, (0, op - o)).reshape(kh * kw, c // 32, 2, 16, op // 128, 16, 8)
+    return w9.permute(1, 4, 0, 5, 2, 6, 3).contiguous()
+
+
+def launch_int8_conv3x3(x_q, wp, scale, bias, *, pool: bool, s_next=None,
+                        out_dtype=torch.float32):
+    """Launch kernel B on operands already in its layout: ``x_q`` contiguous
+    int8 NHWC on the card, ``wp`` from :func:`pack_conv3x3_weights`, ``scale``
+    and ``bias`` [O]."""
+    b, h, w, c = x_q.shape
+    o = scale.shape[0]
     dev = x_q.device
-    x_q = x_q.contiguous()
-    # HWIO [3,3,C,O] -> [9][C/4][O] char4 words over 4 consecutive input channels
-    wp = (w_q.to(dev).reshape(9, c // 4, 4, o).permute(0, 1, 3, 2)
-          .contiguous().view(torch.int32))
     scale = scale.to(dev, torch.float32).contiguous()
     bias = bias.to(dev, torch.float32).contiguous()
     ho, wo = (h // 2, w // 2) if pool else (h, w)

@@ -9,7 +9,9 @@ phases gives the same sums:
   package leaves it to XLA. :func:`conv0_i8` is its wrapper.
 - float route (int8 off): kernel C (``csrc/conv0_f.cu``), the port of
   ``_kernel`` / ``_kernel_v2`` / ``_kernel_wide``. :func:`conv0_f` is its
-  wrapper.
+  wrapper. Its f32 mode is bit-equal to :func:`conv0_f_plain`; its bf16
+  mode sums on the tensor cores in another order and is held within
+  :func:`conv0_f_bound`.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 plain version (:func:`conv0_i8_plain`, :func:`conv0_f_plain`, the same
@@ -73,10 +75,20 @@ def conv0_i8(x_q, w_q, scale, bias, *, out_dtype=torch.float32, s1=None):
         raise ValueError(f"conv0_i8: H and W must be even, got {h}x{w}")
     if s1 is None and out_dtype not in _MODES:
         raise ValueError(f"conv0_i8: out_dtype {out_dtype} not supported")
+    return launch_conv0_i8(x_q.contiguous(), pack_conv0_i8_weights(w_q.to(x_q.device)),
+                           scale, bias, out_dtype=out_dtype, s1=s1)
+
+
+def pack_conv0_i8_weights(w_q):
+    """Kernel A's weight layout: [3,3,3,64] -> [9][64] char4 words (c0, c1, c2, 0)."""
+    return F.pad(w_q.permute(0, 1, 3, 2), (0, 1)).contiguous().view(torch.int32)
+
+
+def launch_conv0_i8(x_q, w4, scale, bias, *, out_dtype=torch.float32, s1=None):
+    """Launch kernel A on operands already in its layout: ``x_q`` contiguous
+    int8 NHWC on the card, ``w4`` from :func:`pack_conv0_i8_weights`."""
+    b, h, w, _ = x_q.shape
     dev = x_q.device
-    x_q = x_q.contiguous()
-    # [3,3,3,64] -> [9][64] char4 words (c0, c1, c2, 0)
-    w4 = F.pad(w_q.to(dev).permute(0, 1, 3, 2), (0, 1)).contiguous().view(torch.int32)
     scale = scale.to(dev, torch.float32).contiguous()
     bias = bias.to(dev, torch.float32).contiguous()
     if s1 is not None:
@@ -92,7 +104,7 @@ def conv0_i8(x_q, w_q, scale, bias, *, out_dtype=torch.float32, s1=None):
     return out
 
 
-def _float_operands(x, w, b):
+def conv0_f_operands(x, w, b):
     """Kernel C's operands: the weights [3,3,3,64] as [27, 64] and the bias
     [64], each rounded to x.dtype (as vqa_tpu/models/vgg.py:249 and
     conv_stage1.py:292-297 do) and widened to f32."""
@@ -110,15 +122,16 @@ def conv0_f_plain(x, w, b):
     row-major, starting from zero; the 2x2 pool is a max over the f32 sums;
     then + b (b rounded to x.dtype), ReLU, one rounding to x.dtype. That
     order is the HWIO weight layout read front to back and needs no
-    reduction tree, so a CUDA thread can follow it step for step with
+    reduction tree, so kernel C's f32 mode follows it step for step with
     ``__fadd_rn(acc, __fmul_rn(x, w))`` and the two are bit-equal on the
-    card. It differs from vqa_tpu's CPU fallback ``_xla_reference``, which
+    card; its bf16 mode (tensor cores) is within :func:`conv0_f_bound`. It
+    differs from vqa_tpu's CPU fallback ``_xla_reference``, which
     rounds the conv to x.dtype before the bias.
     """
     if x.is_cuda:
         CONV0_F.plain_on_cuda += 1
     bsz, h, wd, c = x.shape
-    w32, b32 = _float_operands(x, w, b)
+    w32, b32 = conv0_f_operands(x, w, b)
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1))
     acc = torch.zeros((bsz, h, wd, w32.shape[1]), dtype=torch.float32, device=x.device)
     for kh in range(3):
@@ -145,11 +158,36 @@ def conv0_f(x, w, b):
     if h % 2 or wd % 2:
         raise ValueError(f"conv0_f: H and W must be even, got {h}x{wd}")
     x = x.contiguous()
-    w32, b32 = _float_operands(x, w, b)
+    return launch_conv0_f(x, *conv0_f_operands(x, w, b))
+
+
+def launch_conv0_f(x, w32, b32):
+    """Launch kernel C on operands already in its layout: ``x`` contiguous
+    NHWC on the card, ``w32``/``b32`` from ``conv0_f_operands``."""
+    bsz, h, wd, _ = x.shape
     out = torch.empty((bsz, h // 2, wd // 2, 64), dtype=x.dtype, device=x.device)
     CONV0_F.launch(x.data_ptr(), w32.data_ptr(), b32.data_ptr(), out.data_ptr(),
                    bsz, h, wd, _MODES[x.dtype])
     return out
+
+
+def conv0_f_bound(x, w, plain):
+    """Kernel C's bf16 tolerance, per element of its output:
+    ``ulp_bf16(|plain|) + 2^-17 * sum_taps |x * w|``.
+
+    The tensor cores sum the 27 exact bf16 x bf16 products in f32 in another
+    order than ``conv0_f_plain`` (each of ~32 additions within about one f32
+    ulp of a partial sum no larger than the sum of |x * w|), and both round
+    once to bf16. The sum of |x * w| is the plain version on |x| and |w| in
+    f32 (bias 0): the largest of the four pool phases, as the max takes one.
+    """
+    wa = w.to(x.device, x.dtype).abs().float()
+    sum_abs = conv0_f_plain(x.abs().float(), wa, torch.zeros(wa.shape[-1], device=x.device))
+    mag = plain.float().abs()
+    _, e = torch.frexp(mag)                         # mag = m * 2^e, m in [0.5, 1)
+    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8),
+                      torch.zeros_like(mag))
+    return ulp + sum_abs * 2.0 ** -17
 
 
 def conv0_bn_relu_pool(x, w, b, *, int8: bool = False, s_x=None):
