@@ -12,7 +12,8 @@ without CUDA it exits non-zero before printing any result):
 2. build every CUDA kernel of the port from ``vqa_tpu_torch/csrc`` (one nvcc
    per source, started together), time the build, and count the
    tensor-core instructions in each kernel's SASS (``cuobjdump -sass``:
-   kernel B must hold integer ones, kernel C's bf16 body bf16 ones);
+   every function of kernels A and B must hold integer ones, kernel C's
+   bf16 body bf16 ones);
 3. kernel phase: each kernel mode of the serving and training paths against
    its plain PyTorch version on the card at the 448² shapes (2 samples):
    bit for bit, except kernel C in bf16, which sums on the tensor cores in
@@ -23,10 +24,11 @@ without CUDA it exits non-zero before printing any result):
    outside the timed call; ``launch_ms``), beside the plain version's time,
    its bound (the least time the card could take: bytes over the memory
    rate or operations over the peak rate for their type, whichever is
-   larger) and a library yardstick: for kernel B ``torch._int_mm`` on each
-   layer's im2col matrix (the GEMM alone, its second operand column-major
-   as cuBLASLt's int8 tensor-core GEMM takes it), for kernel C
-   ``F.conv2d`` (cuDNN, the conv alone). The JSON line carries
+   larger) and a library yardstick: for kernels A and B ``torch._int_mm``
+   on the im2col matrix (A: its 27 taps zero-padded to 32; B: each layer's;
+   the GEMM alone, its second operand column-major as cuBLASLt's int8
+   tensor-core GEMM takes it), for kernel C ``F.conv2d`` (cuDNN, the conv
+   alone). The JSON line carries
    kernel A's requant mode, kernel B's conv1-7 summed (static path) and
    kernel C in bf16;
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
@@ -159,6 +161,9 @@ def sass_counts():
             or not all(set(ops) & {"HMMA", "HGMMA"} for ops in c_bf16):
         raise AssertionError("kernel B lacks integer or kernel C's bf16 body bf16 "
                              "tensor-core instructions")
+    a_funcs = counts["conv0_s2d_i8.cu"]
+    if not a_funcs or not all(set(ops) & {"IMMA", "IGMMA"} for ops in a_funcs.values()):
+        raise AssertionError("a function of kernel A lacks integer tensor-core instructions")
     return counts
 
 
@@ -205,31 +210,49 @@ def kernel_phase(dev):
         errs[name] = max(errs[name], err)
 
     # kernel A: conv0, calibration pass (bf16 out, dynamic scale) and static
-    # path (requant for conv1)
+    # path (requant for conv1). The yardstick is torch._int_mm on kernel A's
+    # im2col matrix, [B*H*W, 32] (27 taps x channels, zero-padded) x [32, 64]
+    # with a column-major second operand: the GEMM alone, int32 out, without
+    # im2col, pool or epilogue (timed here, never called by the port)
     for b in (2, BATCH):
         x = ri(b, IMAGE, IMAGE, 3)
         w = ri(3, 3, 3, 64)
-        w4 = conv_stage1.pack_conv0_i8_weights(w)
+        wf = conv_stage1.pack_conv0_i8_weights(w)
         sc, bias, s1 = rs(64, 1e-5, 1e-4), rs(64, -0.1, 0.1), rs(64, 1e-3, 2e-2)
         modes = {"calibration bf16": dict(out_dtype=torch.bfloat16),
                  "static requant": dict(s1=s1)}
         for label, kw in modes.items():
             k = lambda: conv_stage1.conv0_i8(x, w, sc, bias, **kw)          # noqa: E731
             p = lambda: conv_stage1.conv0_i8_plain(x, w, sc, bias, **kw)    # noqa: E731
+            # at b32 each persistent block walks over 8-12 of the 3,136
+            # tiles, prefetching the next while it computes: checked there too
+            check("conv0_s2d_i8", f"b{b} {label}", k(), p())
             if b == 2:
-                check("conv0_s2d_i8", label, k(), p())
                 continue
             ms, pms = timed_pair(k, p)
-            lms = timed(lambda: conv_stage1.launch_conv0_i8(x, w4, sc, bias, **kw))
+            lms = timed(lambda: conv_stage1.launch_conv0_i8(x, wf, sc, bias, **kw))
             out = k()
             bms, by = bound(nbytes(x, w, sc, bias, out) + (nbytes(s1) if "s1" in kw else 0),
                             2.0 * b * IMAGE * IMAGE * 27 * 64, INT8_OPS)
             if label == "static requant":
                 times["conv0_s2d_i8"] = [ms, pms, lms]
                 bounds["conv0_s2d_i8"] = [bms, by]
-            print(f"time conv0_s2d_i8 b{b} {label}: wrapper {ms:.4f} ms, launch {lms:.4f} ms, "
-                  f"plain {pms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+            print(f"time conv0_s2d_i8 b{b} {label}: wrapper {ms:.4f} ms ({100 * bms / ms:.1f}% "
+                  f"of bound), launch {lms:.4f} ms ({100 * bms / lms:.1f}% of bound), plain "
+                  f"{pms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
             del out
+        if b == BATCH:
+            cols = torch.cat([F.pad(x, (0, 0, 1, 1, 1, 1))[:, ky:ky + IMAGE, kx:kx + IMAGE]
+                              for ky in range(3) for kx in range(3)], -1)
+            cols = F.pad(cols, (0, 5)).reshape(-1, 32)
+            wmat = F.pad(w.reshape(27, 64), (0, 0, 0, 5)).t().contiguous().t()
+            ims = timed(lambda: torch._int_mm(cols, wmat))  # noqa: B023
+            library["conv0_s2d_i8"] = ims
+            print(f"time conv0_s2d_i8 b{b} torch._int_mm on im2col [{cols.shape[0]}, 32] x "
+                  f"[32, 64]: {ims:.4f} ms "
+                  f"({2.0 * cols.shape[0] * 32 * 64 / (ims * 1e-3) / 1e12:.1f} int8 TOP/s)",
+                  flush=True)
+            del cols
         del x
 
     # kernel B: conv1..conv7 at 448² (H, C_in, C_out, pool); the static
@@ -534,13 +557,18 @@ def train_phase(vocab_file, card="", device="cuda"):
     int8 = vqa_main(args("train", "int8", "--opt_lvl", "1", "--int8_calib", "1",
                          train_file=write_dataset("train_int8", 2 * BATCH, 3)))
     launches, plain = counts()
-    print(f"train int8 route: {int8['steps']} steps, losses {int8['losses']}, launches "
-          f"{launches}, plain convs on CUDA {plain}", flush=True)
+    # one VGG forward per calibration batch (--int8_calib 1), train step and
+    # eval batch: kernel A once in each, kernel B for conv1-7
+    forwards = 1 + int8["steps"] + int8["eval_batches"]
+    print(f"train int8 route: {int8['steps']} steps, {int8['eval_batches']} eval batches, "
+          f"1 calibration batch, losses {int8['losses']}, launches {launches}, plain convs "
+          f"on CUDA {plain}", flush=True)
     if int8["steps"] != 2 or not np.isfinite(int8["losses"]).all():
         raise AssertionError("the int8-route run did not train 2 finite steps")
-    if not (launches["conv0_s2d_i8"] and launches["conv3x3_i8"]) or launches["conv0_f"] \
-            or any(plain.values()):
-        raise AssertionError("the int8 route did not run kernels A and B only")
+    if launches["conv0_s2d_i8"] != forwards or launches["conv3x3_i8"] != 7 * forwards \
+            or launches["conv0_f"] or any(plain.values()):
+        raise AssertionError("the int8 route did not run kernel A once and kernel B 7 times "
+                             "per forward, and nothing else")
     if not os.path.exists(os.path.join(int8["log_dir"], "int8_calib.json")):
         raise AssertionError("int8_calib.json was not written")
     return full, float_launches

@@ -4,9 +4,10 @@ Port of vqa_tpu/ops/conv_stage1.py. The TPU kernels feed the MXU a
 space-to-depth K=108 dot; on the H100 a direct 3x3 conv over the four pool
 phases gives the same sums:
 
-- int8 route: kernel A (``csrc/conv0_s2d_i8.cu``, ``__dp4a``, the int32 sums
-  of ``_kernel_i8``). Quantizing the image stays plain PyTorch, as the JAX
-  package leaves it to XLA. :func:`conv0_i8` is its wrapper.
+- int8 route: kernel A (``csrc/conv0_s2d_i8.cu``, ``mma.sync`` s8 on the
+  tensor cores, the int32 sums of ``_kernel_i8``). Quantizing the image
+  stays plain PyTorch, as the JAX package leaves it to XLA.
+  :func:`conv0_i8` is its wrapper.
 - float route (int8 off): kernel C (``csrc/conv0_f.cu``), the port of
   ``_kernel`` / ``_kernel_v2`` / ``_kernel_wide``. :func:`conv0_f` is its
   wrapper. Its f32 mode is bit-equal to :func:`conv0_f_plain`; its bf16
@@ -22,6 +23,9 @@ package stop-gradients these kernels' inputs (vqa_tpu/models/vgg.py:
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -79,16 +83,36 @@ def conv0_i8(x_q, w_q, scale, bias, *, out_dtype=torch.float32, s1=None):
                            scale, bias, out_dtype=out_dtype, s1=s1)
 
 
+@functools.lru_cache(maxsize=8)
+def _conv0_i8_fragment_index(device: str) -> torch.Tensor:
+    """Where each byte of kernel A's B fragments comes from in the HWIO
+    weights flattened with one zero appended (index 1728)."""
+    g, t, j, r, c = np.meshgrid(*map(np.arange, (8, 4, 8, 2, 4)), indexing="ij")
+    k, o = t + 4 * r, 8 * j + g                     # K word, output channel
+    idx = np.where(c < 3, (3 * k + c) * 64 + o, np.where(k < 3, (24 + k) * 64 + o, 27 * 64))
+    return torch.from_numpy(idx.reshape(-1)).to(device)
+
+
 def pack_conv0_i8_weights(w_q):
-    """Kernel A's weight layout: [3,3,3,64] -> [9][64] char4 words (c0, c1, c2, 0)."""
-    return F.pad(w_q.permute(0, 1, 3, 2), (0, 1)).contiguous().view(torch.int32)
+    """Kernel A's weights as its ``mma.sync`` B fragments: [3,3,3,64] ->
+    int32 [8 (g), 4 (t), 8 (j), 2 (r)], lane 4g + t's registers for n-tile j.
+
+    Register r of lane (g, t) is K word k = t + 4r of output channel
+    8j + g. K word k holds tap k's (c0, c1, c2) in bytes 0-2 (tap k = (ky,
+    kx) = (k // 3, k % 3)) and, for k < 3, tap 8's channel k in byte 3
+    (else 0): the 27 (tap, channel) pairs in one 32-byte k-step.
+    """
+    flat = torch.cat([w_q.reshape(-1), w_q.new_zeros(1)])
+    return flat[_conv0_i8_fragment_index(str(w_q.device))].view(torch.int32).reshape(8, 4, 8, 2)
 
 
-def launch_conv0_i8(x_q, w4, scale, bias, *, out_dtype=torch.float32, s1=None):
+def launch_conv0_i8(x_q, wf, scale, bias, *, out_dtype=torch.float32, s1=None):
     """Launch kernel A on operands already in its layout: ``x_q`` contiguous
-    int8 NHWC on the card, ``w4`` from :func:`pack_conv0_i8_weights`."""
+    int8 NHWC on the card, ``wf`` from :func:`pack_conv0_i8_weights`."""
     b, h, w, _ = x_q.shape
     dev = x_q.device
+    if x_q.data_ptr() % 4:
+        x_q = x_q.clone()        # the launcher refuses an image that is not 4-byte aligned
     scale = scale.to(dev, torch.float32).contiguous()
     bias = bias.to(dev, torch.float32).contiguous()
     if s1 is not None:
@@ -98,7 +122,7 @@ def launch_conv0_i8(x_q, w4, scale, bias, *, out_dtype=torch.float32, s1=None):
     else:
         out = torch.empty((b, h // 2, w // 2, 64), dtype=out_dtype, device=dev)
         mode = _MODES[out_dtype]
-    CONV0_S2D_I8.launch(x_q.data_ptr(), w4.data_ptr(), scale.data_ptr(),
+    CONV0_S2D_I8.launch(x_q.data_ptr(), wf.data_ptr(), scale.data_ptr(),
                         bias.data_ptr(), s1.data_ptr() if s1 is not None else None,
                         out.data_ptr(), b, h, w, mode)
     return out
