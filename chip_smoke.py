@@ -14,42 +14,50 @@ without CUDA it exits non-zero before printing any result):
    tensor-core instructions in each kernel's SASS (``cuobjdump -sass``:
    every function of kernels A and B must hold integer ones, kernel C's
    bf16 body bf16 ones);
-3. kernel phase: each kernel mode of the serving and training paths against
-   its plain PyTorch version on the card at the 448² shapes (2 samples):
-   bit for bit, except kernel C in bf16, which sums on the tensor cores in
-   another order and must lie within ``conv_stage1.conv0_f_bound`` (the
-   share of elements that differ is printed). Then, at batch 32, each
-   mode's time twice, the wrapper as the paths call it (weight packing
-   included; the JSON line's ``ms``) and the launch alone (operands packed
-   outside the timed call; ``launch_ms``), beside the plain version's time,
-   its bound (the least time the card could take: bytes over the memory
-   rate or operations over the peak rate for their type, whichever is
-   larger) and a library yardstick: for kernels A and B ``torch._int_mm``
-   on the im2col matrix (A: its 27 taps zero-padded to 32; B: each layer's;
-   the GEMM alone, its second operand column-major as cuBLASLt's int8
-   tensor-core GEMM takes it), for kernel C ``F.conv2d`` (cuDNN, the conv
-   alone). The JSON line carries
-   kernel A's requant mode, kernel B's conv1-7 summed (static path) and
-   kernel C in bf16;
+3. kernel phase, at the attention model's 448² shapes and again at the
+   baseline and bert models' 224² (conv0 224 -> 112, conv1 at 112, conv2-3
+   at 56, conv4-5 at 28, conv6-7 at 14): each kernel mode of the serving and
+   training paths against its plain PyTorch version on the card, at 2
+   samples and at batch 32: bit for bit, except kernel C in bf16, which sums
+   on the tensor cores in another order and must lie within
+   ``conv_stage1.conv0_f_bound`` (the share of elements that differ is
+   printed). Then, at batch 32, each mode's time twice, the wrapper as the
+   paths call it (weight packing included; the JSON line's ``ms``) and the
+   launch alone (operands packed outside the timed call; ``launch_ms``),
+   beside the plain version's time, its bound (the least time the card could
+   take: bytes over the memory rate or operations over the peak rate for
+   their type, whichever is larger) and a library yardstick: for kernels A
+   and B ``torch._int_mm`` on the im2col matrix (A: its 27 taps zero-padded
+   to 32; B: each layer's; the GEMM alone, its second operand column-major
+   as cuBLASLt's int8 tensor-core GEMM takes it), for kernel C ``F.conv2d``
+   (cuDNN, the conv alone). The JSON line carries the 448² numbers of kernel
+   A's requant mode, kernel B's conv1-7 summed (static path) and kernel C in
+   bf16; a line before it carries every mode at 224²;
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
-   requests with the ``attention`` model at full width, batch 32, 448²,
-   ``--opt_lvl 1`` (int8 stages 0..7, fused stem, int8 hand-offs), random
-   seeded weights and a synthetic vocab of bench.py's sizes; the launch
-   counts are zeroed just before and read just after, and kernels A and B
-   must have run and no plain conv on a CUDA tensor;
-5. cross-device phase: 2 of those requests through the same weights and
-   calibration on the CPU's plain path; the VGG features must be bit-equal
-   and the probabilities within PROB_TOL;
-6. train phase: ``vqa_tpu_torch.main.main`` trains the same model at batch
-   32, 448² on 192 synthetic (image, question, answer) lines with 64
-   validation lines: the float route (``--int8_backbone false``: kernel C
-   launched once per train step and per eval batch, A and B never), a
-   resume from its step-3 checkpoint whose losses must match the
-   uninterrupted run's within RESUME_RTOL, ``--mode test`` through its
-   checkpoint, and 2 steps of the default int8 route (calibration, kernels A
-   and B). Each run zeroes the counts just before and reads them just after.
+   requests with each model at full width and its own image size (attention
+   448², baseline and bert 224²), batch 32, ``--opt_lvl 1`` (int8 stages
+   0..7, fused stem, int8 hand-offs), random seeded weights and a synthetic
+   vocab of bench.py's sizes; the launch counts are zeroed just before each
+   model's run and read just after: kernel A once and kernel B 7 times per
+   forward (3 batches and the calibration pass), no plain conv on a CUDA
+   tensor;
+5. cross-device phase (attention, baseline): 2 of those requests through the
+   same weights and calibration on the CPU's plain path; the VGG conv
+   features must be bit-equal and the probabilities within PROB_TOL;
+6. train phase: ``vqa_tpu_torch.main.main`` trains at batch 32 on 192
+   synthetic (image, question, answer) lines with 64 validation lines:
+   the attention model's float route (``--opt_lvl 1 --int8_backbone false``:
+   kernel C in bf16) and the baseline's at ``--opt_lvl 0`` (kernel C in
+   f32, dropout live), each launching kernel C once per train step and per
+   eval batch and A and B never, each resumed from its step-3 checkpoint with
+   losses within RESUME_RTOL of the uninterrupted run's, each through
+   ``--mode test``; then 2 steps of the default int8 route (calibration,
+   kernels A and B) for the attention and bert models. Each run zeroes the
+   counts just before and reads them just after.
 
-The line before the last is a JSON object of per-kernel launches, errors,
+Per-path launch counts go on a line of their own. The line before the last
+is a JSON object of per-kernel launches (kernels A and B: the attention
+model's serving path; kernel C: its float-route training run), errors,
 times and bounds; the last is ``{"ok": true, "device": {...}}``.
 """
 
@@ -64,7 +72,8 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
-N_REQUESTS, BATCH, IMAGE = 96, 32, 448
+N_REQUESTS, BATCH = 96, 32
+IMAGE, IMAGE_224 = 448, 224        # attention; baseline and bert (config.MODEL_CONFIGS)
 VOCAB_WORDS, SEQ_LEN, ANSWERS = 10000, 23, 1000        # bench.py:279 (K = 1001)
 # CPU vs card probabilities: the question tower, co-attention and head run
 # in bf16 on both, with different matmul kernels; the VGG features are equal
@@ -167,16 +176,26 @@ def sass_counts():
     return counts
 
 
-def kernel_phase(dev):
-    """Every kernel mode on the paths vs its plain version, then times: the
-    wrapper (packing included) and the launch alone (operands packed outside
-    the timed call), beside the plain version, the bound and a library
-    yardstick."""
+def layer_shapes(image: int):
+    """Kernel B's conv1-7 at an input of ``image``²: (name, H, C_in, C_out, pool)."""
+    return [("conv1", image // 2, 64, 128, True), ("conv2", image // 4, 128, 256, False),
+            ("conv3", image // 4, 256, 256, True), ("conv4", image // 8, 256, 512, False),
+            ("conv5", image // 8, 512, 512, True), ("conv6", image // 16, 512, 512, False),
+            ("conv7", image // 16, 512, 512, True)]
+
+
+def kernel_phase(dev, image: int):
+    """Every kernel mode on the paths vs its plain version at the ``image``²
+    shapes, then times: the wrapper (packing included) and the launch alone
+    (operands packed outside the timed call), beside the plain version, the
+    bound and a library yardstick. Returns {(kernel, mode): row}, each row
+    with the JSON line's fields (kernel B's conv1-7 summed per mode)."""
     import torch
     import torch.nn.functional as F
     from vqa_tpu_torch.ops import conv_hpack, conv_stage1
 
     g = torch.Generator().manual_seed(0)
+    tag = f"{image}²"
 
     def ri(*shape):
         return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8).to(dev)
@@ -184,13 +203,24 @@ def kernel_phase(dev):
     def rs(n, lo, hi):
         return (torch.rand(n, generator=g) * (hi - lo) + lo).to(dev)
 
-    names = ("conv0_s2d_i8", "conv3x3_i8", "conv0_f")
-    errs = {k: 0.0 for k in names}
-    times = {k: [0.0, 0.0, 0.0] for k in names}      # [wrapper, plain, launch alone]
-    bounds = {k: [0.0, "bytes"] for k in names}
-    library = {k: None for k in names}
+    rows = {}
 
-    def check(name, label, out, ref, tol=None):
+    def row(name, mode):
+        return rows.setdefault((name, mode), {
+            "max_abs_err": 0.0, "ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None})
+
+    def record(name, mode, ms, lms, pms, bms, by, lib=None):
+        r = row(name, mode)
+        r["ms"] += ms
+        r["launch_ms"] += lms
+        r["plain_ms"] += pms
+        r["bound_ms"] += bms
+        r["bound_by"] = by
+        if lib is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib
+
+    def check(name, mode, label, out, ref, tol=None):
         """Bit-equal, or within the per-element bound ``tol``."""
         torch.cuda.synchronize()
         diff = (out.float() - ref.float()).abs()
@@ -203,11 +233,12 @@ def kernel_phase(dev):
             what = (f"within bound {ok} (worst diff / bound "
                     f"{(diff / tol.clamp_min(1e-30)).max().item():.4f}), "
                     f"{100 * (out != ref).float().mean().item():.4f}% of elements differ")
-        print(f"kernel {name} {label}: shape {tuple(out.shape)} {out.dtype} {what} "
+        print(f"kernel {name} {tag} {label}: shape {tuple(out.shape)} {out.dtype} {what} "
               f"max_abs_err {err}", flush=True)
         if not ok:
-            raise AssertionError(f"{name} {label}: kernel differs from its plain version")
-        errs[name] = max(errs[name], err)
+            raise AssertionError(f"{name} {tag} {label}: kernel differs from its plain version")
+        r = row(name, mode)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
 
     # kernel A: conv0, calibration pass (bf16 out, dynamic scale) and static
     # path (requant for conv1). The yardstick is torch._int_mm on kernel A's
@@ -215,71 +246,75 @@ def kernel_phase(dev):
     # with a column-major second operand: the GEMM alone, int32 out, without
     # im2col, pool or epilogue (timed here, never called by the port)
     for b in (2, BATCH):
-        x = ri(b, IMAGE, IMAGE, 3)
+        x = ri(b, image, image, 3)
         w = ri(3, 3, 3, 64)
         wf = conv_stage1.pack_conv0_i8_weights(w)
         sc, bias, s1 = rs(64, 1e-5, 1e-4), rs(64, -0.1, 0.1), rs(64, 1e-3, 2e-2)
         modes = {"calibration bf16": dict(out_dtype=torch.bfloat16),
                  "static requant": dict(s1=s1)}
+        ims = None
+        if b == BATCH:
+            cols = torch.cat([F.pad(x, (0, 0, 1, 1, 1, 1))[:, ky:ky + image, kx:kx + image]
+                              for ky in range(3) for kx in range(3)], -1)
+            cols = F.pad(cols, (0, 5)).reshape(-1, 32)
+            wmat = F.pad(w.reshape(27, 64), (0, 0, 0, 5)).t().contiguous().t()
+            ims = timed(lambda: torch._int_mm(cols, wmat))  # noqa: B023
+            print(f"time conv0_s2d_i8 {tag} b{b} torch._int_mm on im2col [{cols.shape[0]}, 32] "
+                  f"x [32, 64]: {ims:.4f} ms "
+                  f"({2.0 * cols.shape[0] * 32 * 64 / (ims * 1e-3) / 1e12:.1f} int8 TOP/s)",
+                  flush=True)
+            del cols
         for label, kw in modes.items():
             k = lambda: conv_stage1.conv0_i8(x, w, sc, bias, **kw)          # noqa: E731
             p = lambda: conv_stage1.conv0_i8_plain(x, w, sc, bias, **kw)    # noqa: E731
-            # at b32 each persistent block walks over 8-12 of the 3,136
-            # tiles, prefetching the next while it computes: checked there too
-            check("conv0_s2d_i8", f"b{b} {label}", k(), p())
+            # at b32 each persistent block walks over several tiles,
+            # prefetching the next while it computes: checked there too
+            check("conv0_s2d_i8", label, f"b{b} {label}", k(), p())
             if b == 2:
                 continue
             ms, pms = timed_pair(k, p)
             lms = timed(lambda: conv_stage1.launch_conv0_i8(x, wf, sc, bias, **kw))
             out = k()
             bms, by = bound(nbytes(x, w, sc, bias, out) + (nbytes(s1) if "s1" in kw else 0),
-                            2.0 * b * IMAGE * IMAGE * 27 * 64, INT8_OPS)
-            if label == "static requant":
-                times["conv0_s2d_i8"] = [ms, pms, lms]
-                bounds["conv0_s2d_i8"] = [bms, by]
-            print(f"time conv0_s2d_i8 b{b} {label}: wrapper {ms:.4f} ms ({100 * bms / ms:.1f}% "
-                  f"of bound), launch {lms:.4f} ms ({100 * bms / lms:.1f}% of bound), plain "
+                            2.0 * b * image * image * 27 * 64, INT8_OPS)
+            record("conv0_s2d_i8", label, ms, lms, pms, bms, by, ims)
+            print(f"time conv0_s2d_i8 {tag} b{b} {label}: wrapper {ms:.4f} ms "
+                  f"({100 * bms / ms:.1f}% of bound), launch {lms:.4f} ms ({100 * bms / lms:.1f}% of bound), plain "
                   f"{pms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
             del out
-        if b == BATCH:
-            cols = torch.cat([F.pad(x, (0, 0, 1, 1, 1, 1))[:, ky:ky + IMAGE, kx:kx + IMAGE]
-                              for ky in range(3) for kx in range(3)], -1)
-            cols = F.pad(cols, (0, 5)).reshape(-1, 32)
-            wmat = F.pad(w.reshape(27, 64), (0, 0, 0, 5)).t().contiguous().t()
-            ims = timed(lambda: torch._int_mm(cols, wmat))  # noqa: B023
-            library["conv0_s2d_i8"] = ims
-            print(f"time conv0_s2d_i8 b{b} torch._int_mm on im2col [{cols.shape[0]}, 32] x "
-                  f"[32, 64]: {ims:.4f} ms "
-                  f"({2.0 * cols.shape[0] * 32 * 64 / (ims * 1e-3) / 1e12:.1f} int8 TOP/s)",
-                  flush=True)
-            del cols
         del x
 
-    # kernel B: conv1..conv7 at 448² (H, C_in, C_out, pool); the static
-    # path requantizes for the next stage except conv7 (bf16 out), the
+    # kernel B: conv1..conv7 (H, C_in, C_out, pool); the static path
+    # requantizes for the next stage except conv7 (bf16 out), the
     # calibration pass stores bf16 everywhere. The yardstick is
     # torch._int_mm on the layer's im2col matrix: the GEMM alone, without
     # im2col, pool or epilogue (timed here, never called by the port). Its
     # second operand is column-major, the layout cuBLASLt's int8 tensor-core
     # GEMM takes; the TOP/s printed show the rate it reached
-    layers = [("conv1", 224, 64, 128, True), ("conv2", 112, 128, 256, False),
-              ("conv3", 112, 256, 256, True), ("conv4", 56, 256, 512, False),
-              ("conv5", 56, 512, 512, True), ("conv6", 28, 512, 512, False),
-              ("conv7", 28, 512, 512, True)]
-    int_mm_sum = 0.0
-    for name, hw, c, o, pool in layers:
+    for name, hw, c, o, pool in layer_shapes(image):
         for b in (2, BATCH):
             x, w = ri(b, hw, hw, c), ri(3, 3, c, o)
             wp = conv_hpack.pack_conv3x3_weights(w)
             sc, bias, sn = rs(o, 1e-6, 1e-5), rs(o, -0.1, 0.1), rs(o, 1e-3, 2e-2)
             static = dict(out_dtype=torch.bfloat16) if name == "conv7" else dict(s_next=sn)
             modes = {"static": static, "calibration bf16": dict(out_dtype=torch.bfloat16)}
+            ims = None
+            if b == BATCH:
+                cols = torch.cat([F.pad(x, (0, 0, 1, 1, 1, 1))[:, ky:ky + hw, kx:kx + hw]
+                                  for ky in range(3) for kx in range(3)], -1)
+                cols, wmat = cols.reshape(-1, 9 * c), w.reshape(9 * c, o).t().contiguous().t()
+                ims = timed(lambda: torch._int_mm(cols, wmat))  # noqa: B023
+                print(f"time conv3x3_i8 {tag} {name} b{b} torch._int_mm on im2col "
+                      f"[{cols.shape[0]}, {9 * c}] x [{9 * c}, {o}]: {ims:.4f} ms "
+                      f"({2.0 * cols.shape[0] * 9 * c * o / (ims * 1e-3) / 1e12:.1f} int8 TOP/s)",
+                      flush=True)
+                del cols
             for label, kw in modes.items():
                 args = (x, w, sc, bias)
                 k = lambda: conv_hpack.int8_conv3x3(*args, pool=pool, **kw)  # noqa: E731
                 p = lambda: conv_hpack.int8_conv3x3_plain(*args, pool=pool, **kw)  # noqa: E731
+                check("conv3x3_i8", label, f"{name} b{b} {label}", k(), p())
                 if b == 2:
-                    check("conv3x3_i8", f"{name} {label}", k(), p())
                     continue
                 ms, pms = timed_pair(k, p)
                 lms = timed(lambda: conv_hpack.launch_int8_conv3x3(  # noqa: B023
@@ -289,33 +324,17 @@ def kernel_phase(dev):
                 bms, by = bound(nbytes(x, w, sc, bias, out)
                                 + (nbytes(sn) if "s_next" in kw else 0), ops, INT8_OPS)
                 del out
-                if label == "static":
-                    for i, v in enumerate((ms, pms, lms)):
-                        times["conv3x3_i8"][i] += v
-                    bounds["conv3x3_i8"][0] += bms
-                    bounds["conv3x3_i8"][1] = by
-                print(f"time conv3x3_i8 {name} b{b} {label}: wrapper {ms:.4f} ms, launch "
+                record("conv3x3_i8", label, ms, lms, pms, bms, by, ims)
+                print(f"time conv3x3_i8 {tag} {name} b{b} {label}: wrapper {ms:.4f} ms, launch "
                       f"{lms:.4f} ms ({ops / (lms * 1e-3) / 1e12:.1f} int8 TOP/s, "
                       f"{100 * bms / lms:.1f}% of bound), plain {pms:.4f} ms, bound {bms:.4f} ms "
                       f"({by})", flush=True)
-            if b == BATCH:
-                cols = torch.cat([F.pad(x, (0, 0, 1, 1, 1, 1))[:, ky:ky + hw, kx:kx + hw]
-                                  for ky in range(3) for kx in range(3)], -1)
-                cols, wmat = cols.reshape(-1, 9 * c), w.reshape(9 * c, o).t().contiguous().t()
-                ims = timed(lambda: torch._int_mm(cols, wmat))  # noqa: B023
-                int_mm_sum += ims
-                print(f"time conv3x3_i8 {name} b{b} torch._int_mm on im2col "
-                      f"[{cols.shape[0]}, {9 * c}] x [{9 * c}, {o}]: {ims:.4f} ms "
-                      f"({2.0 * cols.shape[0] * 9 * c * o / (ims * 1e-3) / 1e12:.1f} int8 TOP/s)",
-                      flush=True)
-                del cols
             del x
-    library["conv3x3_i8"] = int_mm_sum
-    wms, pms, lms = times["conv3x3_i8"]
-    bms = bounds["conv3x3_i8"][0]
-    print(f"time conv3x3_i8 conv1-7 static b{BATCH}: wrapper {wms:.4f} ms ({100 * bms / wms:.1f}% "
-          f"of bound), launch {lms:.4f} ms ({100 * bms / lms:.1f}% of bound), plain {pms:.4f} ms, "
-          f"torch._int_mm {int_mm_sum:.4f} ms, bound {bms:.4f} ms", flush=True)
+    r = rows[("conv3x3_i8", "static")]
+    print(f"time conv3x3_i8 {tag} conv1-7 static b{BATCH}: wrapper {r['ms']:.4f} ms "
+          f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound), launch {r['launch_ms']:.4f} ms "
+          f"({100 * r['bound_ms'] / r['launch_ms']:.1f}% of bound), plain {r['plain_ms']:.4f} ms, "
+          f"torch._int_mm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms", flush=True)
 
     # kernel C: float conv0 (int8 off), bf16 (the training route at
     # --opt_lvl >= 1; tensor cores, held within conv0_f_bound) and f32
@@ -323,15 +342,16 @@ def kernel_phase(dev):
     # (no bias, ReLU or pool), in full f32 for f32 (TF32 off)
     for dt, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for b in (2, BATCH):
-            x = (torch.randn((b, IMAGE, IMAGE, 3), generator=g) * 1.5).to(dev, dt)
+            x = (torch.randn((b, image, image, 3), generator=g) * 1.5).to(dev, dt)
             w = (torch.randn((3, 3, 3, 64), generator=g) * 0.2).to(dev, dt)
             bias = (torch.randn(64, generator=g) * 0.1).to(dev, dt)
             k = lambda: conv_stage1.conv0_f(x, w, bias)          # noqa: E731
             p = lambda: conv_stage1.conv0_f_plain(x, w, bias)    # noqa: E731
+            ref = p()
+            tol = conv_stage1.conv0_f_bound(x, w, ref) if label == "bf16" else None
+            check("conv0_f", label, f"b{b} {label}", k(), ref, tol)
+            del ref, tol
             if b == 2:
-                ref = p()
-                tol = conv_stage1.conv0_f_bound(x, w, ref) if label == "bf16" else None
-                check("conv0_f", label, k(), ref, tol)
                 continue
             ms, pms = timed_pair(k, p)
             w32, b32 = conv_stage1.conv0_f_operands(x, w, bias)
@@ -345,18 +365,15 @@ def kernel_phase(dev):
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
             out = k()
-            bms, by = bound(nbytes(x, w, bias, out), 2.0 * b * IMAGE * IMAGE * 27 * 64,
+            bms, by = bound(nbytes(x, w, bias, out), 2.0 * b * image * image * 27 * 64,
                             BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
             del out
-            if label == "bf16":
-                times["conv0_f"] = [ms, pms, lms]
-                bounds["conv0_f"] = [bms, by]
-                library["conv0_f"] = cms
-            print(f"time conv0_f b{b} {label}: wrapper {ms:.4f} ms, launch {lms:.4f} ms, "
+            record("conv0_f", label, ms, lms, pms, bms, by, cms)
+            print(f"time conv0_f {tag} b{b} {label}: wrapper {ms:.4f} ms, launch {lms:.4f} ms, "
                   f"plain {pms:.4f} ms, F.conv2d (conv only) {cms:.4f} ms, bound {bms:.4f} ms "
                   f"({by}, {100 * bms / ms:.1f}% of bound)", flush=True)
             del x
-    return errs, times, bounds, library
+    return rows
 
 
 def write_requests():
@@ -399,39 +416,49 @@ def write_dataset(name: str, n: int, seed: int) -> str:
     return path
 
 
-def serve_phase(vocab_file, pairs, device="cuda"):
+def serve_phase(vocab_file, pairs, model_name="attention", device="cuda"):
+    """``vqa_tpu_torch.serve.main`` answers the requests with one model at
+    its full width and image size, ``--opt_lvl 1`` (int8 stages 0..7, fused
+    stem, int8 hand-offs); the counts are zeroed just before and read just
+    after."""
     import numpy as np
     from vqa_tpu_torch import _build
     from vqa_tpu_torch.serve import main as serve_main
 
-    out = os.path.join(WORK, "preds.jsonl")
+    out = os.path.join(WORK, f"preds_{model_name}.jsonl")
     _build.reset_counts()
-    predictor = serve_main(["--model", "attention", "--vocab_file", vocab_file,
+    predictor = serve_main(["--model", model_name, "--vocab_file", vocab_file,
                             "--img_dir", WORK, "--input", pairs, "--output", out,
                             "--batch_size", str(BATCH), "--opt_lvl", "1",
                             "--synthetic_images", "--device", device])
-    launches = {k.symbol: k.launches for k in _build.KERNELS}
-    plain_on_cuda = {k.symbol: k.plain_on_cuda for k in _build.KERNELS}
+    launches, plain_on_cuda = counts()
     with open(out) as f:
         rows = [json.loads(s) for s in f]
     model = predictor.model
-    print(f"serve: {len(rows)} answers, int8 stages {model.int8_stages}, fused stem "
+    tag = f"serve {model_name} b{BATCH}@{predictor.image_size}²"
+    print(f"{tag}: {len(rows)} answers, int8 stages {model.int8_stages}, fused stem "
           f"{model.vgg.fused_stem}, calibrated on batch {predictor.calibrated_on_batch}, "
-          f"launches {launches}, plain convs on CUDA {plain_on_cuda}", flush=True)
+          f"plain convs on CUDA {plain_on_cuda}", flush=True)
+    print(f"launches path=serve model={model_name}: {json.dumps(launches)}", flush=True)
     if len(rows) != N_REQUESTS:
         raise AssertionError(f"expected {N_REQUESTS} answers, got {len(rows)}")
     probs = np.array([[p for _, p in r["topk"]] for r in rows])
     if not (np.isfinite(probs).all() and ((probs >= 0) & (probs <= 1)).all()):
         raise AssertionError("non-finite or out-of-range probabilities")
-    if model.int8_stages != (0, 1, 2, 3, 4, 5, 6, 7) or predictor.calibrated_on_batch != 1:
+    if model.int8_stages != (0, 1, 2, 3, 4, 5, 6, 7) or predictor.calibrated_on_batch != 1 \
+            or not model.vgg.fused_stem:
         raise AssertionError("the int8 stages did not calibrate on the first batch")
-    if not (launches["conv0_s2d_i8"] and launches["conv3x3_i8"]):
-        raise AssertionError(f"a kernel of the serving path never launched: {launches}")
+    # one VGG forward per request batch, plus the calibration pass
+    forwards = 1 + -(-N_REQUESTS // BATCH)
+    if launches["conv0_s2d_i8"] != forwards or launches["conv3x3_i8"] != 7 * forwards \
+            or launches["conv0_f"]:
+        raise AssertionError(f"the serving path did not run kernel A once and kernel B 7 "
+                             f"times per forward: {launches}")
     if any(v != 0 for v in plain_on_cuda.values()):
         raise AssertionError(f"a plain conv ran on a CUDA tensor: {plain_on_cuda}")
     secs = predictor.batch_seconds
     steady = secs[1:3]
-    print(f"serve: batch seconds {[round(s, 4) for s in secs]} (batch 1 calibrates); "
+    print(f"{tag}: batch seconds {[round(s, 4) for s in secs]} (batch 1 calibrates); "
           f"batches 2-3: {2 * BATCH / sum(steady):.2f} QA/s, "
           f"{1e3 * sum(steady) / 2:.2f} ms per batch of {BATCH}", flush=True)
     return predictor, launches
@@ -439,7 +466,7 @@ def serve_phase(vocab_file, pairs, device="cuda"):
 
 def cross_device_phase(predictor, pairs, device="cuda"):
     """2 requests on the card and on the CPU's plain path, same weights and
-    calibration: bit-equal VGG features, probabilities within PROB_TOL."""
+    calibration: bit-equal VGG conv features, probabilities within PROB_TOL."""
     import numpy as np
     import torch
     from vqa_tpu_torch.config import build_model
@@ -447,22 +474,25 @@ def cross_device_phase(predictor, pairs, device="cuda"):
     from vqa_tpu_torch.data.pipeline import make_image_preprocessor
 
     gpu_model = predictor.model
-    cpu_model, _ = build_model("attention", predictor.vocab.size, predictor.num_classes,
-                               device="cpu", opt_lvl=1, int8_backbone=True)
+    cpu_model, _ = build_model(predictor.model_name, predictor.vocab.size,
+                               predictor.num_classes, device="cpu", opt_lvl=1,
+                               int8_backbone=True,
+                               max_seq_length=predictor.vocab.max_seq_length)
     cpu_model.load_state_dict({k: v.cpu() for k, v in gpu_model.state_dict().items()})
     cpu_model.int8_amax = gpu_model.int8_amax
     cpu_model.eval()
     with open(pairs) as f:
         lines = [ln.split("\t") for ln in f.read().splitlines()[:2]]
-    images = decode_batch([os.path.join(WORK, ln[0]) for ln in lines], IMAGE,
+    size = predictor.image_size
+    images = decode_batch([os.path.join(WORK, ln[0]) for ln in lines], size,
                           synthetic_fallback=True)
     ids, lens = predictor.encode_questions([ln[1] for ln in lines])
     out = {}
     for name, model, d in (("cuda", gpu_model, torch.device(device)),
                            ("cpu", cpu_model, torch.device("cpu"))):
-        x = make_image_preprocessor(IMAGE, device=d)(images)
+        x = make_image_preprocessor(size, device=d)(images)
         with torch.no_grad():
-            feats = model.image_encoder(x)
+            feats = model.vgg(x)
             logits = model(x, torch.from_numpy(ids).long().to(d),
                            torch.from_numpy(lens).long().to(d))
         out[name] = (feats.float().cpu(), torch.softmax(logits.float(), -1).cpu())
@@ -471,9 +501,10 @@ def cross_device_phase(predictor, pairs, device="cuda"):
     feat_equal = torch.equal(f_gpu, f_cpu)
     dp = (p_gpu - p_cpu).abs().max().item()
     top_equal = bool((p_gpu.argmax(-1) == p_cpu.argmax(-1)).all())
-    print(f"cross-device: features {tuple(f_gpu.shape)} bit-equal {feat_equal} "
-          f"(max diff {(f_gpu - f_cpu).abs().max().item()}), probabilities max diff {dp} "
-          f"(tolerance {PROB_TOL}), same top-1 {top_equal}", flush=True)
+    print(f"cross-device {predictor.model_name} {size}²: features {tuple(f_gpu.shape)} "
+          f"bit-equal {feat_equal} (max diff {(f_gpu - f_cpu).abs().max().item()}), "
+          f"probabilities max diff {dp} (tolerance {PROB_TOL}), same top-1 {top_equal}",
+          flush=True)
     if not feat_equal:
         raise AssertionError("VGG features differ between the card and the CPU plain path")
     if not (dp <= PROB_TOL and np.isfinite(p_gpu.numpy()).all()):
@@ -487,10 +518,14 @@ def counts():
 
 
 def train_phase(vocab_file, card="", device="cuda"):
-    """Float-route training, its resume and test mode, then the int8 route."""
+    """Per model: a float-route run, its resume from step 3 and ``--mode
+    test``, then the int8 route's calibration and 2 steps. attention: the
+    float route at ``--opt_lvl 1`` (kernel C in bf16), the int8 route;
+    baseline: the float route at ``--opt_lvl 0`` (kernel C in f32, dropout
+    live); bert: the int8 route. Returns {path: launches}, each read just
+    after its own run."""
     import shutil
 
-    import numpy as np
     import torch
     from vqa_tpu_torch import _build
     from vqa_tpu_torch.main import main as vqa_main
@@ -498,80 +533,96 @@ def train_phase(vocab_file, card="", device="cuda"):
     runs = os.path.join(WORK, "runs")
     shutil.rmtree(runs, ignore_errors=True)
     train, val = write_dataset("train", N_TRAIN, 1), write_dataset("val", N_VAL, 2)
+    train_int8 = write_dataset("train_int8", 2 * BATCH, 3)
+    path_launches = {}
 
-    def args(mode, run, *extra, train_file=train):
-        return ["--mode", mode, "--model", "attention", "--expt_dir", runs,
-                "--expt_name", "smoke", "--run_name", run, "--train_img", WORK,
+    def args(model, mode, run, *extra, train_file=train):
+        return ["--mode", mode, "--model", model, "--expt_dir", runs,
+                "--expt_name", "smoke", "--run_name", f"{model}_{run}", "--train_img", WORK,
                 "--train_file", train_file, "--val_img", WORK, "--val_file", val,
                 "--vocab_file", vocab_file, "--batch_size", str(BATCH), "--num_epochs", "1",
-                "--num_cls", str(ANSWERS), "--image_size", str(IMAGE),
-                "--synthetic_images", "true", "--log_interval",
+                "--num_cls", str(ANSWERS), "--synthetic_images", "true", "--log_interval",
                 "2", "--save_interval", "3", "--val_size", str(N_VAL), "--num_workers", "8",
                 "--device", device, *extra]
 
-    float_route = ("--opt_lvl", "1", "--int8_backbone", "false")
-    _build.reset_counts()
-    torch.cuda.reset_peak_memory_stats()
-    full = vqa_main(args("train", "float", *float_route))
-    float_launches, plain = counts()
-    launches = float_launches
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    losses = full["losses"]
-    print(f"train float route: {full['steps']} steps, losses {losses}, eval batches "
-          f"{full['eval_batches']}, launches {launches}, plain convs on CUDA {plain}",
-          flush=True)
-    if full["steps"] != N_TRAIN // BATCH or not np.isfinite(losses).all():
-        raise AssertionError("the float-route run did not train 6 finite steps")
-    if launches["conv0_f"] != full["steps"] + full["eval_batches"]:
-        raise AssertionError("kernel C did not run once per train step and eval batch")
-    if launches["conv0_s2d_i8"] or launches["conv3x3_i8"] or any(plain.values()):
-        raise AssertionError("the float route ran an int8 kernel or a plain conv")
-    ckpt3 = os.path.join(full["log_dir"], "model_3.ckpt")
-    if not os.path.exists(ckpt3):
-        raise AssertionError("model_3.ckpt was not written")
-    sync = dict(full["sync_points"])       # {steps done: train seconds}
-    steady = sync[6] - sync[2]
-    print(f"train float route ({card}): steps 3-6 {4 * BATCH / steady:.2f} QA/s, "
-          f"{1e3 * steady / 4:.2f} ms per step of {BATCH} (host clock, validation and "
-          f"checkpoint time taken out); peak device memory {peak_gib:.2f} GiB "
-          f"(max_memory_allocated)", flush=True)
+    def run(model, path, *a, **kw):
+        _build.reset_counts()
+        out = vqa_main(args(model, *a, **kw))
+        launches, plain = counts()
+        path_launches[f"{path} {model}"] = launches
+        print(f"launches path={path.replace(' ', '_')} model={model}: {json.dumps(launches)}",
+              flush=True)
+        if any(plain.values()):
+            raise AssertionError(f"{path} {model} ran a plain conv on a CUDA tensor: {plain}")
+        return out, launches
 
-    _build.reset_counts()
-    resumed = vqa_main(args("train", "float_resumed", *float_route, "--model_ckpt", ckpt3))
-    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[3:]))
-    print(f"train resume from step 3: losses {resumed['losses']} vs {losses[3:]}, max "
-          f"relative difference {rel} (tolerance {RESUME_RTOL}), launches {counts()[0]}",
-          flush=True)
-    if resumed["first_step"] != 3 or resumed["steps"] != 3 or not rel <= RESUME_RTOL:
-        raise AssertionError("the resumed run does not repeat steps 4-6")
+    def float_route(model, flags, mode_name):
+        torch.cuda.reset_peak_memory_stats()
+        full, launches = run(model, "train float", "train", "float", *flags)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = full["losses"]
+        print(f"train {model} float route ({mode_name}): {full['steps']} steps, losses {losses}, "
+              f"eval batches {full['eval_batches']}", flush=True)
+        finite = all(v == v and abs(v) != float("inf") for v in losses)
+        if full["steps"] != N_TRAIN // BATCH or not finite:
+            raise AssertionError(f"the {model} float-route run did not train 6 finite steps")
+        if launches["conv0_f"] != full["steps"] + full["eval_batches"]:
+            raise AssertionError(f"{model}: kernel C did not run once per train step and "
+                                 f"eval batch")
+        if launches["conv0_s2d_i8"] or launches["conv3x3_i8"]:
+            raise AssertionError(f"the {model} float route ran an int8 kernel")
+        ckpt3 = os.path.join(full["log_dir"], "model_3.ckpt")
+        if not os.path.exists(ckpt3):
+            raise AssertionError("model_3.ckpt was not written")
+        sync = dict(full["sync_points"])       # {steps done: train seconds}
+        steady = sync[6] - sync[2]
+        print(f"train {model} float route ({mode_name}; {card}): steps 3-6 "
+              f"{4 * BATCH / steady:.2f} QA/s, {1e3 * steady / 4:.2f} ms per step of {BATCH} "
+              f"(host clock, validation and checkpoint time taken out); peak device memory "
+              f"{peak_gib:.2f} GiB (max_memory_allocated)", flush=True)
 
-    _build.reset_counts()
-    res = vqa_main(args("test", "float", *float_route, "--model_ckpt",
-                        os.path.join(full["log_dir"], "model_6.ckpt")))
-    print(f"test mode: {res}, launches {counts()[0]}", flush=True)
-    if res["samples"] != N_VAL or not np.isfinite(res["loss"]) \
-            or counts()[0]["conv0_f"] != N_VAL // BATCH:
-        raise AssertionError("test mode did not evaluate the val file through kernel C")
+        resumed, launches = run(model, "train resume", "train", "float_resumed", *flags,
+                                "--model_ckpt", ckpt3)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[3:]))
+        print(f"train {model} resume from step 3: losses {resumed['losses']} vs {losses[3:]}, "
+              f"max relative difference {rel} (tolerance {RESUME_RTOL})", flush=True)
+        if resumed["first_step"] != 3 or resumed["steps"] != 3 or not rel <= RESUME_RTOL:
+            raise AssertionError(f"the resumed {model} run does not repeat steps 4-6")
 
-    _build.reset_counts()
-    int8 = vqa_main(args("train", "int8", "--opt_lvl", "1", "--int8_calib", "1",
-                         train_file=write_dataset("train_int8", 2 * BATCH, 3)))
-    launches, plain = counts()
-    # one VGG forward per calibration batch (--int8_calib 1), train step and
-    # eval batch: kernel A once in each, kernel B for conv1-7
-    forwards = 1 + int8["steps"] + int8["eval_batches"]
-    print(f"train int8 route: {int8['steps']} steps, {int8['eval_batches']} eval batches, "
-          f"1 calibration batch, losses {int8['losses']}, launches {launches}, plain convs "
-          f"on CUDA {plain}", flush=True)
-    if int8["steps"] != 2 or not np.isfinite(int8["losses"]).all():
-        raise AssertionError("the int8-route run did not train 2 finite steps")
-    if launches["conv0_s2d_i8"] != forwards or launches["conv3x3_i8"] != 7 * forwards \
-            or launches["conv0_f"] or any(plain.values()):
-        raise AssertionError("the int8 route did not run kernel A once and kernel B 7 times "
-                             "per forward, and nothing else")
-    if not os.path.exists(os.path.join(int8["log_dir"], "int8_calib.json")):
-        raise AssertionError("int8_calib.json was not written")
-    return full, float_launches
+        res, launches = run(model, "test", "test", "float", *flags, "--model_ckpt",
+                            os.path.join(full["log_dir"], "model_6.ckpt"))
+        print(f"test mode {model}: {res}", flush=True)
+        if res["samples"] != N_VAL or not res["loss"] == res["loss"] \
+                or launches["conv0_f"] != N_VAL // BATCH:
+            raise AssertionError(f"{model} test mode did not evaluate the val file through "
+                                 f"kernel C")
+        shutil.rmtree(full["log_dir"])
+        shutil.rmtree(resumed["log_dir"])
+
+    def int8_route(model):
+        out, launches = run(model, "train int8", "train", "int8", "--opt_lvl", "1",
+                            "--int8_calib", "1", train_file=train_int8)
+        # one VGG forward per calibration batch (--int8_calib 1), train step and
+        # eval batch: kernel A once in each, kernel B for conv1-7
+        forwards = 1 + out["steps"] + out["eval_batches"]
+        print(f"train {model} int8 route: {out['steps']} steps, {out['eval_batches']} eval "
+              f"batches, 1 calibration batch, losses {out['losses']}", flush=True)
+        finite = all(v == v and abs(v) != float("inf") for v in out["losses"])
+        if out["steps"] != 2 or not finite:
+            raise AssertionError(f"the {model} int8-route run did not train 2 finite steps")
+        if launches["conv0_s2d_i8"] != forwards or launches["conv3x3_i8"] != 7 * forwards \
+                or launches["conv0_f"]:
+            raise AssertionError(f"the {model} int8 route did not run kernel A once and "
+                                 f"kernel B 7 times per forward, and nothing else")
+        if not os.path.exists(os.path.join(out["log_dir"], "int8_calib.json")):
+            raise AssertionError("int8_calib.json was not written")
+        shutil.rmtree(out["log_dir"])
+
+    float_route("attention", ("--opt_lvl", "1", "--int8_backbone", "false"), "bf16")
+    int8_route("attention")
+    float_route("baseline", ("--opt_lvl", "0"), "f32, --opt_lvl 0")
+    int8_route("bert")
+    return path_launches
 
 
 def main() -> int:
@@ -595,28 +646,47 @@ def main() -> int:
 
     sass_counts()
     dev = torch.device("cuda")
-    errs, times, bounds, library = kernel_phase(dev)
+    # the attention model's shapes (448²), then the baseline and bert models' (224²)
+    rows = {image: kernel_phase(dev, image) for image in (IMAGE, IMAGE_224)}
     vocab_file, pairs = write_requests()
-    predictor, serve_launches = serve_phase(vocab_file, pairs)
-    cross_device_phase(predictor, pairs)
-    del predictor
-    torch.cuda.empty_cache()
+    serve_launches = {}
+    for model_name in ("attention", "baseline", "bert"):
+        predictor, serve_launches[model_name] = serve_phase(vocab_file, pairs, model_name)
+        if model_name != "bert":
+            cross_device_phase(predictor, pairs)
+        del predictor
+        torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    _, train_launches = train_phase(vocab_file, card)
+    train_launches = train_phase(vocab_file, card)
     print(f"train phase: {time.perf_counter() - t0:.2f} s", flush=True)
-    # launches: kernels A and B from the serving path, kernel C from the
-    # float-route training run (each read just after its own run)
-    path_launches = {**serve_launches, "conv0_f": train_launches["conv0_f"]}
 
+    def kernel_fields(image, k, mode):
+        r = rows[image][(k.symbol, mode)]
+        return {"name": k.symbol, "route": "cuda",
+                "source": os.path.relpath(os.path.join(_build.CSRC, k.source), ROOT),
+                "replaces": k.replaces,
+                "max_abs_err": max(v["max_abs_err"] for rs in rows.values()
+                                   for (name, _), v in rs.items() if name == k.symbol),
+                **{f: r[f] for f in ("ms", "launch_ms", "plain_ms", "bound_ms", "bound_by",
+                                     "library_ms")}}
+
+    # the JSON line's modes: kernel A's requant, kernel B's conv1-7 static
+    # path summed, kernel C in bf16; every mode at 224² on the line above it
+    json_modes = {"conv0_s2d_i8": "static requant", "conv3x3_i8": "static", "conv0_f": "bf16"}
+    print("kernels at 224² (b32; baseline and bert): " + json.dumps([
+        {**kernel_fields(IMAGE_224, k, mode), "mode": mode}
+        for k in _build.KERNELS for (name, mode) in rows[IMAGE_224] if name == k.symbol]),
+        flush=True)
+    by_path = {**{f"serve {m}": v for m, v in serve_launches.items()}, **train_launches}
+    print("launches by path: " + json.dumps(by_path), flush=True)
+    # launches: kernels A and B from the attention model's serving path,
+    # kernel C from its float-route training run (each read just after its
+    # own run)
+    path_launches = {**serve_launches["attention"],
+                     "conv0_f": train_launches["train float attention"]["conv0_f"]}
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        {"name": k.symbol, "route": "cuda",
-         "source": os.path.relpath(os.path.join(_build.CSRC, k.source), ROOT),
-         "replaces": k.replaces, "launches": path_launches[k.symbol],
-         "max_abs_err": errs[k.symbol], "ms": times[k.symbol][0],
-         "launch_ms": times[k.symbol][2], "plain_ms": times[k.symbol][1],
-         "bound_ms": bounds[k.symbol][0],
-         "bound_by": bounds[k.symbol][1], "library_ms": library[k.symbol]}
+        {**kernel_fields(IMAGE, k, json_modes[k.symbol]), "launches": path_launches[k.symbol]}
         for k in _build.KERNELS]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -304,9 +304,13 @@ def cuda():
 # bias = s1 / 2, so y / s1 lies a few ulps from a half-integer (the requant's
 # division fallback); "tiles_784" and "tiles_1024": more 16 x 32 tiles than
 # the card holds blocks at once (at most 3 a SM), so each persistent block
-# computes several and prefetches the next, at full tiles and at ragged ones
+# computes several and prefetches the next, at full tiles and at ragged ones;
+# 224²: the baseline and bert models' shape, pooled 112 = 3.5 tiles of 32
+# columns (the last tile's second unit lies past the edge), at b2 and at b32
+# (784 tiles, persistent blocks)
 KERNEL_A_CASES = {"ragged": ((2, 36, 70), "random"), "pooled_width_23": ((1, 20, 46), "random"),
                   "pooled_rows_13": ((3, 26, 36), "random"), "448": ((1, 448, 448), "random"),
+                  "224": ((2, 224, 224), "random"), "224_b32": ((32, 224, 224), "random"),
                   "extremes": ((2, 36, 70), "extremes"),
                   "half_integers": ((2, 36, 70), "half_integers"),
                   "tiles_784": ((8, 448, 448), "random"), "tiles_1024": ((256, 36, 70), "random")}
@@ -398,6 +402,33 @@ def test_kernel_b_bit_equal_to_plain_on_card(cuda, mode, pool, channels, hw):
     assert torch.equal(out, conv_hpack.int8_conv3x3_plain(x, w, sc, b, pool=pool, **kw))
 
 
+# conv1-7 at 224² (H = W, C_in, C_out, pool): conv1 on the fused stem's
+# 112-wide hand-off (3.5 tiles of 32 columns), conv6-7 at 14 x 14 (most of
+# an 8 x 32 tile masked)
+KERNEL_B_224 = {"conv1": (112, 64, 128, True), "conv2": (56, 128, 256, False),
+                "conv3": (56, 256, 256, True), "conv4": (28, 256, 512, False),
+                "conv5": (28, 512, 512, True), "conv6": (14, 512, 512, False),
+                "conv7": (14, 512, 512, True)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", list(KERNEL_B_224))
+@pytest.mark.parametrize("mode", ["float32", "bfloat16", "int8"])
+def test_kernel_b_bit_equal_at_224_shapes_on_card(cuda, mode, layer):
+    hw, c, o, pool = KERNEL_B_224[layer]
+    g = torch.Generator().manual_seed(3)
+    x = torch.randint(-127, 128, (2, hw, hw, c), generator=g, dtype=torch.int8).to(cuda)
+    w = torch.randint(-127, 128, (3, 3, c, o), generator=g, dtype=torch.int8).to(cuda)
+    sc = (torch.rand(o, generator=g) * 1e-5 + 1e-6).to(cuda)
+    b = (torch.randn(o, generator=g) * 0.1).to(cuda)
+    kw = ({"s_next": (torch.rand(o, generator=g) * 0.02 + 1e-3).to(cuda)}
+          if mode == "int8" else {"out_dtype": TORCH_DT[mode]})
+    _build.reset_counts()
+    out = conv_hpack.int8_conv3x3(x, w, sc, b, pool=pool, **kw)
+    assert _build.CONV3X3_I8.launches == 1
+    assert torch.equal(out, conv_hpack.int8_conv3x3_plain(x, w, sc, b, pool=pool, **kw))
+
+
 @pytest.mark.cuda
 def test_kernel_b_rejects_unsupported_channels_on_card(cuda):
     x = torch.zeros((1, 4, 4, 48), dtype=torch.int8, device=cuda)
@@ -408,11 +439,14 @@ def test_kernel_b_rejects_unsupported_channels_on_card(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 36, 70), (2, 224, 224)], ids=["ragged", "224"])
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
-def test_kernel_c_matches_plain_on_card(cuda, mode):
-    """f32: bit-equal. bf16: within ``conv0_f_bound`` (tensor-core order)."""
+def test_kernel_c_matches_plain_on_card(cuda, mode, shape):
+    """f32: bit-equal. bf16: within ``conv0_f_bound`` (tensor-core order).
+    At 224² the pooled 112 x 112 map is less than one 128-pixel bf16 tile
+    per row pair."""
     g = torch.Generator().manual_seed(2)
-    x = torch.randn((2, 36, 70, 3), generator=g).to(cuda, TORCH_DT[mode])
+    x = torch.randn((*shape, 3), generator=g).to(cuda, TORCH_DT[mode])
     w = (torch.randn((3, 3, 3, 64), generator=g) * 0.2).to(cuda)
     b = (torch.randn(64, generator=g) * 0.1).to(cuda)
     _build.reset_counts()

@@ -80,14 +80,27 @@ def test_predictions_match_vqa_tpu(setup):
                                    atol=1e-5, rtol=0)
 
 
-def test_cli_jsonl_matches_vqa_tpu(setup, tmp_path):
-    args = ["--model", "attention", "--vocab_file", setup["vocab"],
-            "--model_ckpt", setup["ckpt"], "--img_dir", setup["root"],
+@pytest.mark.parametrize("model", ["attention", "baseline", "bert"])
+def test_cli_jsonl_matches_vqa_tpu(setup, tmp_path, model):
+    """The same ``.pth`` through both CLIs at full width: the reference
+    format for attention and baseline, vqa_tpu's flat dict for bert."""
+    ckpt = setup["ckpt"]
+    if model != "attention":
+        vocab = Vocab.load(setup["vocab"])
+        jm, _ = jax_build(model, vocab.size, vocab.num_labels, opt_lvl=0)
+        params, stats = parity_safe_variables(jm, seed=37, seq=vocab.max_seq_length)
+        ckpt = str(tmp_path / f"{model}.pth")
+        save_pth(ckpt, model, params, stats)
+    args = ["--model", model, "--vocab_file", setup["vocab"],
+            "--model_ckpt", ckpt, "--img_dir", setup["root"],
             "--input", setup["data"], "--batch_size", "2", "--image_size", str(S),
             "--synthetic_images", "--opt_lvl", "0", "--top_k", "2"]
     out_j, out_t = tmp_path / "j.jsonl", tmp_path / "t.jsonl"
     jax_main(args + ["--output", str(out_j)])
-    serve_main(args + ["--output", str(out_t), "--device", "cpu"])
+    port = serve_main(args + ["--output", str(out_t), "--device", "cpu"])
+    assert port.num_classes == port.vocab.num_labels
+    if ckpt != setup["ckpt"]:
+        os.remove(ckpt)             # 0.5 GB (the VGG head)
     rows_j = [json.loads(s) for s in out_j.read_text().splitlines()]
     rows_t = [json.loads(s) for s in out_t.read_text().splitlines()]
     assert len(rows_t) == len(rows_j) == 5
@@ -147,8 +160,11 @@ def test_unported_entry_points_raise(setup, tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys; import vqa_tpu_torch.serve, vqa_tpu_torch.models.convert, "
-            "vqa_tpu_torch.train.calibrate, vqa_tpu_torch.ops.conv_stem; "
-            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax')]; "
+            "vqa_tpu_torch.train.calibrate, vqa_tpu_torch.ops.conv_stem, "
+            "vqa_tpu_torch.models.baseline, vqa_tpu_torch.models.bert, "
+            "vqa_tpu_torch.main, vqa_tpu_torch.profile_train; "
+            "bad = [m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vqa_tpu')]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 

@@ -171,6 +171,23 @@ def test_build_model_routes_like_vqa_tpu(kw):
     assert vgg.dtype == (torch.float32 if kw["opt_lvl"] == 0 else torch.bfloat16)
 
 
+@pytest.mark.parametrize("name", ["baseline", "bert"])
+@pytest.mark.parametrize("kw", [ROUTING_CASES[i] for i in (0, 2, 7)], ids=lambda kw: ",".join(
+    f"{k}={v}" for k, v in kw.items()))
+def test_build_model_routes_baseline_and_bert_like_vqa_tpu(name, kw):
+    """Every family routes through the same code; three cases each (the
+    default int8 set, int8 off, a stage override) show it reaches them."""
+    jm, jcfg = jax_build(name, 12, 3, max_seq_length=23, **kw)
+    tm, tcfg = build_model(name, 12, 3, device="cpu", max_seq_length=23, **kw)
+    assert tcfg.__dict__ == jcfg.__dict__ and tcfg.image_size == 224
+    for field in ("int8_stages", "conv0_pallas", "hpack_pool", "fused_stem",
+                  "int8_handoff"):
+        assert getattr(tm.vgg, field) == getattr(jm, field), field
+    assert tm.vgg is tm.image_encoder.vgg11_encoder.conv_layers
+    if name == "bert":
+        assert tm.question_encoder.max_len == jm.max_len == 64
+
+
 def test_auto_int8_follows_the_device():
     # the auto-enable asks for the card; on the CPU it stays off, as in JAX
     tm, _ = build_model("attention", 12, 3, opt_lvl=1, device="cpu")
@@ -178,7 +195,21 @@ def test_auto_int8_follows_the_device():
 
 
 def test_classifier_head_and_batch_stats_not_ported():
-    with pytest.raises(NotImplementedError):
-        VGG11Encoder(include_head=True)
-    with pytest.raises(NotImplementedError):
-        build_model("attention", 12, 3, vgg_trainable=True, device="cpu")
+    """The classifier head is ported now (the baseline and bert towers):
+    ``VGG11Encoder(include_head=True)`` has the reference's ``conv_layers`` /
+    ``fc_layers.{1,4}`` keys and maps [B, S, S, 3] to [B, 4096], at 224²
+    and at sizes whose adaptive pool is not the identity. Batch-stats
+    BatchNorm (a trainable VGG) and ``s2d_first`` stay unported and raise."""
+    head = VGG11Encoder(include_head=True).eval()
+    keys = {k for k in head.state_dict() if k.startswith("fc_layers.")}
+    assert keys == {f"fc_layers.{i}.{p}" for i in (1, 4) for p in ("weight", "bias")}
+    assert head.fc_layers[1].in_features == 7 * 7 * 512
+    for size in (32, 224):
+        assert tuple(head(torch.zeros((1, size, size, 3))).shape) == (1, 4096)
+    assert not isinstance(VGG11Encoder(include_head=False), type(head))
+    for name in ("attention", "baseline", "bert"):
+        with pytest.raises(NotImplementedError):
+            build_model(name, 12, 3, vgg_trainable=True, device="cpu")
+    s2d, _ = build_model("baseline", 12, 3, s2d_first=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="s2d_first"):
+        s2d.frozen_features(torch.zeros((1, 32, 32, 3)))

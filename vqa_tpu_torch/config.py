@@ -11,8 +11,9 @@ build the same stage set, hand-offs and stem in both packages. Two changes:
   ``VQA_STEM_CONV1``, ``VQA_HPACK_VARIANT``, ``VQA_HPACK_WPOOL``,
   ``VQA_CONVP_FORCE``) are not carried over: each op has one CUDA kernel.
 
-Only the ``attention`` model is ported so far; ``baseline`` and ``bert``
-raise.
+All three families are ported: ``attention`` (448²), ``baseline`` and
+``bert`` (224²); ``bert``'s position table holds
+``max(64, max_seq_length)`` positions, as vqa_tpu sizes it.
 """
 
 from __future__ import annotations
@@ -83,10 +84,12 @@ def build_model(model_name: str, vocab_size: int, num_classes: int, *,
                 fused_stem: bool = True,
                 int8_handoff: bool = True,
                 int8_stages_override: tuple | None = None,
+                max_seq_length: int | None = None,
                 generator: torch.Generator | None = None):
     """Instantiate a model by registry name on ``device``.
 
-    Same arguments and routing as vqa_tpu.config.build_model, plus
+    Same arguments and routing as vqa_tpu.config.build_model (including
+    ``max_seq_length``, which sizes bert's position table), plus
     ``device`` (the int8 auto-enable reads it) and ``generator`` (weight
     init; a seed-0 generator when None). ``conv0_pallas`` keeps its name: it
     selects the fused conv0 stage, which on the card is kernel A.
@@ -119,7 +122,15 @@ def build_model(model_name: str, vocab_size: int, num_classes: int, *,
     hpack_pool = bool(hpack_pool) and bool(int8_stages)
     fused_stem = bool(fused_stem) and hpack_pool and conv0_pallas
     int8_handoff = bool(int8_handoff) and bool(int8_stages)
-    if model_name == "attention":
+    vgg_kwargs = dict(vgg_trainable=vgg_trainable, s2d_first=s2d_first,
+                      conv0_pallas=conv0_pallas, int8_stages=int8_stages,
+                      hpack_pool=hpack_pool, fused_stem=fused_stem,
+                      int8_handoff=int8_handoff, dtype=dtype, generator=generator)
+    if model_name == "baseline":
+        from .models.baseline import VQABaselineNet
+        model = VQABaselineNet(vocab_size=vocab_size, K=num_classes, **vgg_kwargs,
+                               **cfg.question_params)
+    elif model_name == "attention":
         from .models.coattention import HierarchicalCoAttentionNet
         if use_pallas:
             raise NotImplementedError(
@@ -127,14 +138,13 @@ def build_model(model_name: str, vocab_size: int, num_classes: int, *,
                 "package (PARITY.md M8 criterion; "
                 "tools/retired/coattention_kernel.py) and has no port")
         model = HierarchicalCoAttentionNet(
-            vocab_size=vocab_size, K=num_classes, mlp_dim=cfg.mlp_dim,
-            vgg_trainable=vgg_trainable, s2d_first=s2d_first,
-            conv0_pallas=conv0_pallas, int8_stages=int8_stages,
-            hpack_pool=hpack_pool, fused_stem=fused_stem,
-            int8_handoff=int8_handoff, dtype=dtype,
-            generator=generator, **cfg.question_params)
-        return model.to(device), cfg
-    if model_name in ("baseline", "bert"):
-        raise NotImplementedError(
-            f"the {model_name!r} model is not ported yet (ROADMAP.md queue 1)")
-    raise KeyError(model_name)
+            vocab_size=vocab_size, K=num_classes, mlp_dim=cfg.mlp_dim, **vgg_kwargs,
+            **cfg.question_params)
+    elif model_name == "bert":
+        from .models.bert import VQABertNet
+        model = VQABertNet(vocab_size=vocab_size, K=num_classes,
+                           max_len=max(64, max_seq_length or 0), **vgg_kwargs,
+                           **cfg.question_params)
+    else:
+        raise KeyError(model_name)
+    return model.to(device), cfg

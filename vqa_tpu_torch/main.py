@@ -1,6 +1,6 @@
 """Train/eval CLI (port of vqa_tpu/main.py), flag-compatible with it.
 
-    python -m vqa_tpu_torch.main --mode train --model attention \\
+    python -m vqa_tpu_torch.main --mode train --model attention|baseline|bert \\
         --expt_dir runs --expt_name e --run_name r --train_img imgs \\
         --train_file train.txt --val_img imgs --val_file val.txt \\
         --vocab_file vocab.pkl --batch_size 32 [--int8_backbone false]
@@ -23,7 +23,7 @@ Not ported yet, each raising with its ROADMAP.md queue item:
 ``--num_devices > 1``, ``--model_parallel``, ``--fsdp``, ``--seq_parallel``,
 ``--force_mesh``, ``--cache_features``, ``--ckpt_backend orbax``,
 ``--profile_steps``, ``--vgg_train true``, ``--bn_mode batch``,
-``--grad_accum > 1``, ``--model baseline|bert`` and the native decoders.
+``--grad_accum > 1`` and the native decoders.
 ``--gpu_id`` is accepted and ignored, as in vqa_tpu.
 """
 
@@ -41,6 +41,7 @@ from .config import (build_model, compute_dtype_for_opt_lvl, int_min_two,
                      resolve_device, str2bool)
 from .data.dataset import VQASamples
 from .data.pipeline import DataLoader, device_batch, device_prefetch, make_image_preprocessor
+from .models.vgg import VGG11HeadEncoder
 from .train.checkpoint import (AsyncCheckpointer, latest_checkpoint, load_any,
                                load_params_only)
 from .train.logging import ETAEstimator, make_summary_writer, print_and_log, setup_logs_file
@@ -136,7 +137,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _reject_unported(args) -> None:
     """Flags whose vqa_tpu behaviour the port does not have yet raise."""
     checks = [
-        (args.model in ("baseline", "bert"), f"--model {args.model}", 5),
         (args.num_devices > 1, "--num_devices > 1", 8),
         (args.model_parallel > 1, "--model_parallel", 8),
         (args.fsdp, "--fsdp", 8),
@@ -169,11 +169,18 @@ def _resolve_ckpt(model_ckpt: str, log_dir: str) -> str:
 
 
 def _load_vgg_weights(model, path: str) -> None:
-    """torchvision ``vgg11_bn`` weights (``features.*``) into the VGG; the
-    classifier head is skipped (the co-attention tower has none)."""
+    """torchvision ``vgg11_bn`` weights into the VGG: ``features.*`` into the
+    conv stack and, where the model has the classifier head (baseline,
+    bert), ``classifier.0`` and ``classifier.3`` into its two layers
+    (vqa_tpu/models/convert.py:85-97; both layouts are torchvision's)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     feats = {k[len("features."):]: v for k, v in sd.items() if k.startswith("features.")}
     model.vgg.load_state_dict(feats, strict=True)
+    tower = model.image_encoder.vgg11_encoder
+    if isinstance(tower, VGG11HeadEncoder):
+        tower.fc_layers.load_state_dict({f"{j}.{p}": sd[f"classifier.{i}.{p}"]
+                                         for i, j in ((0, 1), (3, 4))
+                                         for p in ("weight", "bias")}, strict=True)
 
 
 def _host_images(loader, n: int):
@@ -214,6 +221,7 @@ def main(argv=None):
         int8_handoff=args.int8_handoff,
         int8_stages_override=(None if args.int8_stages == "auto" else
                               tuple(int(i) for i in args.int8_stages.split(",") if i)),
+        max_seq_length=vocab.max_seq_length,
         generator=torch.Generator().manual_seed(args.seed))
     image_size = args.image_size or cfg.image_size
     host_size = args.host_size or image_size
@@ -324,8 +332,10 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
 
     def validate(size):
         nonlocal eval_batches
+        model.eval()            # dropout off, as vqa_tpu's eval step (train=False)
         vm = compute_validation_metrics(eval_step, model, iter(val_loader), prepare_batch,
                                         args.batch_size, size)
+        model.train()
         eval_batches += vm["batches"]
         return vm
 

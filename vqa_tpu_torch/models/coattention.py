@@ -25,13 +25,12 @@ wrap the forward in ``torch.no_grad()``.
 
 from __future__ import annotations
 
-import contextlib
-
 import torch
 import torch.nn as nn
 
+from .base import VQANet
 from .layers import LSTM, Embedding, Linear, uniform_
-from .vgg import VGG11Encoder
+from .vgg import VGG11Encoder, VGGFeatures
 
 
 class ImageCoAttentionEncoder(nn.Module):
@@ -150,7 +149,7 @@ class MLPClassifier(nn.Module):
         return self.W_h(h_s)
 
 
-class HierarchicalCoAttentionNet(nn.Module):
+class HierarchicalCoAttentionNet(VQANet):
     """Top-level attention model: logits [B, K] (reference model.py:157-187)."""
 
     def __init__(self, vocab_size: int, K: int, *, word_emb_dim: int = 512,
@@ -180,33 +179,16 @@ class HierarchicalCoAttentionNet(nn.Module):
         self.image_encoder.requires_grad_(False)
 
     @property
-    def vgg(self) -> VGG11Encoder:
+    def vgg(self) -> VGGFeatures:
         return self.image_encoder.vgg11_encoder
 
-    @property
-    def int8_stages(self) -> tuple:
-        return self.vgg.int8_stages
+    def frozen_features(self, x_img: torch.Tensor) -> torch.Tensor:
+        """[B, 196, 512] spatial features; the VGG casts explicitly (its int8
+        ops must not be autocast) and runs without autograd (frozen)."""
+        return self.image_encoder(x_img)
 
-    @property
-    def int8_amax(self) -> tuple:
-        return self.vgg.int8_amax
-
-    @int8_amax.setter
-    def int8_amax(self, amax: tuple) -> None:
-        self.vgg.int8_amax = tuple(amax)
-
-    def _autocast(self, device: torch.device):
-        if self.dtype == torch.float32:
-            return contextlib.nullcontext()
-        return torch.autocast(device.type, dtype=self.dtype)
-
-    def forward(self, x_img: torch.Tensor, x_ques: torch.Tensor,
-                x_ques_lens: torch.Tensor):
-        """x_img [B, H, W, 3] normalized, ids [B, L], lengths [B] -> logits [B, K]."""
-        # the VGG casts explicitly (its int8 ops must not be autocast) and
-        # runs without autograd (frozen)
-        feats = self.image_encoder(x_img)
-        with self._autocast(x_img.device):
+    def head(self, feats, x_ques, x_ques_lens):
+        with self._autocast(feats.device):
             x_word, x_phrase, x_sentence = self.question_encoder(x_ques, x_ques_lens)
             img_attn, ques_attn = self.co_attention(
                 feats, [x_word, x_phrase, x_sentence])

@@ -24,8 +24,10 @@ config down the same branches:
   running per-input-channel max|input| in f32 and turns the fused stem and
   the hand-offs off, as vqa_tpu's mutable ``quant_stats`` collection does.
 
-Not ported yet: batch-stats mode (``--bn_mode batch`` / a trainable VGG),
-``s2d_first``, and the classifier head (the baseline model's).
+The baseline and bert models add the classifier head
+(:class:`VGG11HeadEncoder`: adaptive average pool to 7x7, then torchvision's
+``classifier[:-1]``, vgg.py:497-568). Not ported yet: batch-stats mode
+(``--bn_mode batch`` / a trainable VGG) and ``s2d_first``.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from ..ops.conv_hpack import conv_bn_relu_pool, int8_conv3x3
 from ..ops.conv_stage1 import conv0_bn_relu_pool
 from ..ops.conv_stem import fused_stem, stem_supported
 from ..ops.quant import activation_quant, const, fold_scale, weight_quant
+from .layers import Dropout, autocast
 
 # torchvision configuration "A": channels per conv, 'M' = 2x2/2 max-pool
 VGG11_CFG = (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M")
@@ -228,15 +231,60 @@ class VGGFeatures(nn.Sequential):
                           s_next=self._handoff_scales(2, 128, recording))
 
 
-class VGG11Encoder(VGGFeatures):
-    """``VGG11Encoder(include_head=False)``: the co-attention image tower.
+def adaptive_avg_pool(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """torch ``AdaptiveAvgPool2d`` on NHWC input (vgg.py:49-68): window i
+    spans [floor(i*H/out), ceil((i+1)*H/out)). The identity when the input
+    already has the target size (7x7 at 224²)."""
+    if tuple(x.shape[1:3]) == tuple(out_hw):
+        return x
+    return F.adaptive_avg_pool2d(x.permute(0, 3, 1, 2), out_hw).permute(0, 2, 3, 1)
 
-    Subclasses the feature stack directly so the state-dict keys stay the
-    reference's ``image_encoder.vgg11_encoder.{i}.*``. The FC head
-    (``include_head=True``, the baseline model's) is not ported yet.
+
+class VGGClassifierHead(nn.Sequential):
+    """The reference's ``fc_layers``: Sequential(Flatten, Linear(25088, 4096),
+    ReLU, Dropout(0.5), Linear(4096, 4096), ReLU, Dropout(0.5)), torchvision's
+    ``classifier[:-1]`` with its N(0, 0.01) init and zero bias. It takes the
+    NCHW map, so it flattens in the reference's CHW order; vqa_tpu flattens
+    NHWC and permutes fc0's input axis when it converts (convert.py:258-261).
     """
 
-    def __init__(self, include_head: bool = False, **kwargs):
-        if include_head:
-            raise NotImplementedError("the VGG classifier head is not ported yet")
-        super().__init__(**kwargs)
+    def __init__(self, generator: torch.Generator | None = None):
+        fc0, fc1 = nn.Linear(512 * 7 * 7, 4096), nn.Linear(4096, 4096)
+        with torch.no_grad():
+            for fc in (fc0, fc1):
+                fc.weight.normal_(0.0, 0.01, generator=generator)
+                fc.bias.zero_()
+        super().__init__(nn.Flatten(), fc0, nn.ReLU(), Dropout(0.5), fc1, nn.ReLU(),
+                         Dropout(0.5))
+
+
+class VGG11HeadEncoder(nn.Module):
+    """``VGG11Encoder(include_head=True)``: image -> 4096-d vector (the
+    baseline and bert image tower). Keys as the reference's:
+    ``conv_layers.{i}.*`` (the conv stack) and ``fc_layers.{1,4}.*``.
+
+    Frozen: it runs without autograd, but the head's two Dropouts follow the
+    module's train/eval mode, as the reference keeps the frozen head in
+    train mode and vqa_tpu stops the gradient after it (baseline.py:69-70).
+    """
+
+    def __init__(self, *, dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None, **feature_kwargs):
+        super().__init__()
+        self.dtype = dtype
+        self.conv_layers = VGGFeatures(dtype=dtype, generator=generator, **feature_kwargs)
+        self.fc_layers = VGGClassifierHead(generator)
+
+    @torch.no_grad()
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x [B, H, W, 3] -> [B, 4096] (f32 under fp32, else autocast's dtype)."""
+        x = adaptive_avg_pool(self.conv_layers(x), (7, 7))
+        with autocast(self.dtype, x.device.type):
+            return self.fc_layers(x.permute(0, 3, 1, 2))
+
+
+def VGG11Encoder(include_head: bool = False, **kwargs) -> nn.Module:  # noqa: N802
+    """vqa_tpu's ``VGG11Encoder``: the conv stack alone (the co-attention
+    tower, whose keys are the stack's own ``{i}.*``) or, with
+    ``include_head``, :class:`VGG11HeadEncoder`."""
+    return VGG11HeadEncoder(**kwargs) if include_head else VGGFeatures(**kwargs)

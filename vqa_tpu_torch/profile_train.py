@@ -1,18 +1,21 @@
 """Where a training step's time goes, on the card.
 
-    python -m vqa_tpu_torch.profile_train [--steps 6] [--batch_size 32]
-        [--int8_backbone false|auto] [--out build/profile_train.json]
+    python -m vqa_tpu_torch.profile_train [--model attention|baseline|bert]
+        [--steps 6] [--batch_size 32] [--int8_backbone false|auto]
+        [--out build/profile_train.json]
 
-Trains the ``attention`` model at full width (448², word_emb/hidden 512,
-mlp 1024, K = 1001, vocab 10,000, question length 23; random weights from
-seed 0) on synthetic images, at ``--opt_lvl 1``, on the float route by
-default (conv0 = kernel C). Two measurements, each after 2 warm-up steps:
+Trains one model family at full width (``config.MODEL_CONFIGS``: attention
+at 448², baseline and bert at 224²; K = 1001, vocab 10,000, question length
+23; random weights from seed 0) on synthetic images, at ``--opt_lvl 1``, on
+the float route by default (conv0 = kernel C). Two measurements, each after
+2 warm-up steps:
 
 1. pieces: each part of a step timed alone, with the card synchronized
    before and after it (host clock, median over ``--steps``): host decode of
    one batch (the loader's thread pool, pinning included), H2D copy +
-   preprocess, the VGG forward, the head's forward and backward, the Adam
-   step, and the whole train step;
+   preprocess, the frozen tower's forward (``frozen_features``: the VGG,
+   with its classifier head for baseline and bert), the trained head's
+   forward and backward, the Adam step, and the whole train step;
 2. the loop: the loader thread, ``device_prefetch`` and ``train_step`` as
    ``vqa_tpu_torch.main`` runs them (no validation), ``--steps`` steps
    timed by the host clock, then ``--steps`` more under ``torch.profiler``:
@@ -20,8 +23,8 @@ default (conv0 = kernel C). Two measurements, each after 2 warm-up steps:
    idle share of the unprofiled wall time, launches per step and the
    kernels that take the most device time.
 
-Needs a card (``--device cpu`` only rehearses the script); prints the card's name and power limit beside the numbers and
-writes the JSON summary to ``--out``.
+Needs a card (``--device cpu`` only rehearses the script); prints the card's
+name and power limit beside the numbers and writes the JSON summary to ``--out``.
 """
 
 from __future__ import annotations
@@ -82,11 +85,12 @@ def _busy_us(events) -> float:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", default="attention", choices=["attention", "baseline", "bert"])
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--batch_size", type=int, default=32)
     ap.add_argument("--int8_backbone", default="false", choices=["auto", "false"])
     ap.add_argument("--num_workers", type=int, default=8)
-    ap.add_argument("--image_size", type=int, default=0, help="0 = the model's (448)")
+    ap.add_argument("--image_size", type=int, default=0, help="0 = the model's")
     ap.add_argument("--device", default="cuda", help="'cpu' only to rehearse the script")
     ap.add_argument("--out", default=os.path.join("build", "profile_train.json"))
     args = ap.parse_args(argv)
@@ -110,16 +114,16 @@ def main(argv=None) -> dict:
     work = os.path.join("build", "profile_train")
     vocab_file, data = _write_data(work, bs * (2 * n + 2) + bs)
     vocab = Vocab.load(vocab_file)
-    model, cfg = build_model("attention", vocab.size, ANSWERS + 1, device=dev, opt_lvl=1,
+    model, cfg = build_model(args.model, vocab.size, ANSWERS + 1, device=dev, opt_lvl=1,
                              int8_backbone=None if args.int8_backbone == "auto" else False,
-                             generator=torch.Generator().manual_seed(0))
+                             max_seq_length=SEQ_LEN, generator=torch.Generator().manual_seed(0))
     size = args.image_size or cfg.image_size
     preprocess = make_image_preprocessor(size, torch.bfloat16, dev)
     samples = VQASamples(data, work, vocab.word2idx, vocab.label2idx, vocab.max_seq_length)
     loader = DataLoader(samples, bs, host_size=size, num_workers=args.num_workers,
                         synthetic_images=True, pin_memory=on_card)
     if model.int8_stages:
-        calibrate_model("attention", model, preprocess,
+        calibrate_model(args.model, model, preprocess,
                         [loader._make_batch(np.arange(bs))["image"]], log=print)
     state = create_train_state(model, 1e-4)
     train_step = make_train_step()
@@ -138,17 +142,15 @@ def main(argv=None) -> dict:
     # 1. pieces
     pieces = {k: [] for k in ("host_decode", "h2d_preprocess", "vgg_forward",
                               "head_forward_backward", "adam", "train_step")}
+    model.train()
     for i in range(n + 2):
         idx = np.arange(i * bs, (i + 1) * bs)
         host, t_dec = synced(lambda: loader._make_batch(idx))
         b, t_h2d = synced(lambda: device_batch(host, preprocess, dev))
-        feats, t_vgg = synced(lambda: model.image_encoder(b["image"]))
+        feats, t_vgg = synced(lambda: model.frozen_features(b["image"]))
 
         def head():
-            with model._autocast(dev):
-                qf = model.question_encoder(b["question"], b["ques_len"])
-                img, ques = model.co_attention(feats, list(qf))
-                logits = model.mlp_classify(img, ques)
+            logits = model.head(feats, b["question"], b["ques_len"])
             state.optimizer.zero_grad(set_to_none=True)
             cross_entropy_loss(logits, b["label"]).backward()
 
@@ -195,7 +197,8 @@ def main(argv=None) -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip() if on_card else ""
     summary = {
-        "card": card, "clocks_power_after": smi, "route": "int8" if model.int8_stages
+        "card": card, "clocks_power_after": smi, "model": args.model,
+        "image_size": size, "route": "int8" if model.int8_stages
         else "float (kernel C)", "batch": bs, "steps": n, "pieces_median_ms": medians,
         "loop_ms_per_step": wall_ms / n, "loop_qa_per_s": bs * n / (wall_ms / 1e3),
         "profiled_ms_per_step": prof_wall_ms / n,

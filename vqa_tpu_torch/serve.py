@@ -5,8 +5,11 @@ host, preprocesses them on the device, pads partial batches to
 ``batch_size`` and maps the softmax to top-k answer strings; :func:`main` is
 the JSONL CLI with vqa_tpu.serve's flags plus ``--device``::
 
-    python -m vqa_tpu_torch.serve --model attention --vocab_file vocab.pkl \\
-        --img_dir imgs --input pairs.txt --output preds.jsonl
+    python -m vqa_tpu_torch.serve --model attention|baseline|bert \\
+        --vocab_file vocab.pkl --img_dir imgs --input pairs.txt --output preds.jsonl
+
+The image size is the model's (448² for attention, 224² for baseline and
+bert) unless ``--image_size`` says otherwise.
 
 With int8 stages, static scales resolve in this order: ``--calib_file``,
 then the checkpoint's ``int8_calib.json`` sidecar, then the first request
@@ -16,7 +19,8 @@ contract (text, vocab, image decode) is the port's copy of vqa_tpu's
 (``vqa_tpu_torch.{text,vocab,data.images}``).
 
 Not ported yet: ``--from_export`` / ``--export_to`` and native ``.ckpt``
-checkpoints (a reference-format ``.pth`` loads).
+checkpoints (a ``.pth`` loads: the reference format, or vqa_tpu's flat bert
+dict).
 """
 
 from __future__ import annotations
@@ -65,8 +69,12 @@ class VQAPredictor:
                     f"{checkpoint}: native .ckpt checkpoints are not ported yet; "
                     f"pass a reference-format .pth")
             sd = load_pth(checkpoint)
-            # head size comes from the checkpoint itself
-            num_classes = int(sd["mlp_classify.W_h.weight"].shape[0])
+            # head size comes from the checkpoint itself (vqa_tpu/serve.py:45-60)
+            head = "mlp_classify.W_h.weight" if model_name == "attention" else "fc_final.weight"
+            if head not in sd:
+                raise ValueError(f"{checkpoint}: not a {model_name!r} checkpoint "
+                                 f"(no {head})")
+            num_classes = int(sd[head].shape[0])
         else:
             num_classes = (num_cls + 1) if num_cls is not None else vocab.num_labels
         self.num_classes = num_classes
@@ -75,7 +83,7 @@ class VQAPredictor:
             hpack_pool=hpack_pool, fused_stem=fused_stem,
             int8_handoff=int8_handoff, int8_stages_override=int8_stages,
             opt_lvl=opt_lvl, use_pallas=use_pallas, int8_backbone=int8_backbone,
-            generator=torch.Generator().manual_seed(0))
+            max_seq_length=vocab.max_seq_length, generator=torch.Generator().manual_seed(0))
         if sd is not None:
             self.model.load_state_dict(sd, strict=True)
         self.model.eval()

@@ -20,10 +20,11 @@ CALIB_FILE = "int8_calib.json"
 
 
 def image_tower(model_name: str, model):
-    """The model's frozen conv tower, whose int8 stages need calibration."""
-    if model_name != "attention":
-        raise NotImplementedError(f"the {model_name!r} model is not ported yet")
-    return model.image_encoder
+    """The model's frozen conv stack, whose int8 stages need calibration:
+    for baseline and bert the VGG without its classifier head
+    (vqa_tpu/train/calibrate.py:63-78). Every family exposes it as
+    ``model.vgg``."""
+    return model.vgg
 
 
 def collect_amax(enc, image_batches) -> dict[int, np.ndarray]:

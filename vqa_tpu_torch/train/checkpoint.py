@@ -10,8 +10,9 @@ calibration of a run lives beside its checkpoints as ``int8_calib.json``
 (``train.calibrate``). Saves are synchronous (:class:`AsyncCheckpointer`
 keeps vqa_tpu's interface and waits for each write).
 
-``load_any`` also takes a reference-format ``.pth`` (weights only: the
-optimizer, step and generator stay fresh, as the reference's resume does);
+``load_any`` also takes a ``.pth`` (weights only: the optimizer, step and
+generator stay fresh, as the reference's resume does): the reference format,
+or for bert vqa_tpu's flat dict (``models.convert.load_pth``);
 :func:`export_pth` writes one. vqa_tpu's flax ``.ckpt`` files and its orbax
 backend are not read.
 """
@@ -22,6 +23,7 @@ import os
 
 import torch
 
+from ..models.convert import load_pth, pth_state_dict
 from .state import TrainState
 
 CKPT_PREFIX = "model_"
@@ -89,16 +91,16 @@ def load_any(path: str, state: TrainState) -> TrainState:
 
 
 def load_params_only(path: str) -> dict:
-    """The model state dict of a ``.ckpt`` or a reference ``.pth``, on the CPU."""
+    """The model state dict of a ``.ckpt`` or a ``.pth``, on the CPU."""
     if path.endswith(".pth"):
-        return torch.load(path, map_location="cpu", weights_only=True)
+        return load_pth(path)
     return _load(path)["model"]
 
 
 def export_pth(model: torch.nn.Module, path: str) -> str:
-    """Write the model's reference-named state dict as a ``.pth`` (what
-    ``serve --model_ckpt`` and the reference load)."""
-    _atomic_save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+    """Write the model's ``.pth`` (``models.convert.pth_state_dict``: what
+    ``serve --model_ckpt``, the reference and vqa_tpu's ``from_torch`` load)."""
+    _atomic_save(pth_state_dict(model), path)
     return path
 
 

@@ -4,7 +4,9 @@ One train step is forward (under the model's precision policy: bf16
 autocast for the head at ``--opt_lvl >= 1``), mean softmax cross-entropy on
 fp32 logits (``nn.CrossEntropyLoss``, reference main.py:179,214), backward
 and one Adam step on the trainable parameters. The frozen VGG runs in
-running-stats mode and without autograd (models/coattention.py).
+running-stats mode and without autograd (models/coattention.py). The step
+puts the model in train mode, so the baseline and bert models' dropouts
+(the VGG head's included) are live; callers evaluate in eval mode.
 
 Not ported yet: ``bn_batch_stats=True`` (the reference's batch-stats quirk,
 ``--bn_mode batch``), a trainable VGG and ``grad_accum > 1``; each raises.
@@ -37,6 +39,7 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
                                   "(ROADMAP.md queue 1 item 4)")
 
     def train_step(state: TrainState, batch: dict) -> dict:
+        state.model.train()
         logits = state.model(batch["image"], batch["question"], batch["ques_len"])
         loss = cross_entropy_loss(logits, batch["label"])
         state.optimizer.zero_grad(set_to_none=True)
