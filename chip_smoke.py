@@ -12,27 +12,31 @@ without CUDA it exits non-zero before printing any result):
 2. build every CUDA kernel of the port from ``vqa_tpu_torch/csrc`` (one nvcc
    per source, started together), time the build, and count the
    tensor-core instructions in each kernel's SASS (``cuobjdump -sass``:
-   every function of kernels A and B must hold integer ones, kernel C's
-   bf16 body bf16 ones);
+   every function of kernels A and B must hold integer ones, every function
+   of kernel C float ones: HMMA, bf16 in its bf16 body, TF32 in its f32
+   body);
 3. kernel phase, at the attention model's 448² shapes and again at the
    baseline and bert models' 224² (conv0 224 -> 112, conv1 at 112, conv2-3
    at 56, conv4-5 at 28, conv6-7 at 14): each kernel mode of the serving and
    training paths against its plain PyTorch version on the card, at 2
-   samples and at batch 32: bit for bit, except kernel C in bf16, which sums
-   on the tensor cores in another order and must lie within
-   ``conv_stage1.conv0_f_bound`` (the share of elements that differ is
-   printed). Then, at batch 32, each mode's time twice, the wrapper as the
-   paths call it (weight packing included; the JSON line's ``ms``) and the
-   launch alone (operands packed outside the timed call; ``launch_ms``),
-   beside the plain version's time, its bound (the least time the card could
-   take: bytes over the memory rate or operations over the peak rate for
-   their type, whichever is larger) and a library yardstick: for kernels A
-   and B ``torch._int_mm`` on the im2col matrix (A: its 27 taps zero-padded
-   to 32; B: each layer's; the GEMM alone, its second operand column-major
-   as cuBLASLt's int8 tensor-core GEMM takes it), for kernel C ``F.conv2d``
-   (cuDNN, the conv alone). The JSON line carries the 448² numbers of kernel
-   A's requant mode, kernel B's conv1-7 summed (static path) and kernel C in
-   bf16; a line before it carries every mode at 224²;
+   samples and at batch 32: bit for bit, except kernel C, which sums on the
+   tensor cores in another order (in f32 through 3xTF32) and must lie within
+   ``conv_stage1.conv0_f_bound`` (the worst diff / bound and the share of
+   elements that differ are printed). Then, at batch 32, each mode's time
+   twice, the wrapper as the paths call it (weight packing included; the
+   JSON line's ``ms``) and the launch alone (operands packed outside the
+   timed call; ``launch_ms``), beside the plain version's time, its bound
+   (the least time the card could take: bytes over the memory rate or
+   operations over the peak rate for their type, whichever is larger;
+   kernel C's f32 mode counts its 3xTF32 operations, and its CUDA-core bound
+   of earlier slices is printed beside it) and a library yardstick: for
+   kernels A and B ``torch._int_mm`` on the im2col matrix (A: its 27 taps
+   zero-padded to 32; B: each layer's; the GEMM alone, its second operand
+   column-major as cuBLASLt's int8 tensor-core GEMM takes it), for kernel C
+   ``F.conv2d`` (cuDNN, the conv alone; in f32 with TF32 off). The JSON line
+   carries the 448² numbers of kernel A's requant mode, kernel B's conv1-7
+   summed (static path) and kernel C in bf16; lines before it carry every
+   mode at 448² and at 224²;
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
    requests with each model at full width and its own image size (attention
    448², baseline and bert 224²), batch 32, ``--opt_lvl 1`` (int8 stages
@@ -66,6 +70,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 import subprocess
 import sys
 import time
@@ -87,6 +92,9 @@ RESUME_RTOL = 1e-5
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s, int8
 # tensor-core ops/s, bf16 tensor-core FLOP/s (f32 sums), f32 CUDA-core FLOP/s
 HBM_BPS, INT8_OPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 1979e12, 989e12, 67e12
+# TF32 tensor-core FLOP/s: an f32-accurate product costs three TF32 MMAs
+# (3xTF32), the card's fastest way to kernel C's f32 function
+TF32_FLOPS = 494.7e12
 
 
 def card_line() -> str:
@@ -141,7 +149,6 @@ def bound(bytes_moved: int, ops: float, peak: float):
 def sass_counts():
     """Tensor-core instructions in each kernel's SASS (``cuobjdump -sass``),
     by function: {source: {function: {opcode: count}}}."""
-    import re
     import shutil
     from vqa_tpu_torch import _build
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -165,11 +172,11 @@ def sass_counts():
         for fn, ops in funcs.items():
             print(f"sass {k.source} {fn}: {ops or 'no tensor-core instructions'}", flush=True)
     b_ops = [op for ops in counts["conv3x3_i8.cu"].values() for op in ops]
-    c_bf16 = [ops for fn, ops in counts["conv0_f.cu"].items() if "bf16" in fn]
-    if not set(b_ops) & {"IMMA", "IGMMA"} or not c_bf16 \
-            or not all(set(ops) & {"HMMA", "HGMMA"} for ops in c_bf16):
-        raise AssertionError("kernel B lacks integer or kernel C's bf16 body bf16 "
-                             "tensor-core instructions")
+    c_funcs = counts["conv0_f.cu"]
+    if not set(b_ops) & {"IMMA", "IGMMA"} or len(c_funcs) < 2 \
+            or not all(set(ops) & {"HMMA", "HGMMA"} for ops in c_funcs.values()):
+        raise AssertionError("kernel B lacks integer tensor-core instructions, or a "
+                             "function of kernel C float ones")
     a_funcs = counts["conv0_s2d_i8.cu"]
     if not a_funcs or not all(set(ops) & {"IMMA", "IGMMA"} for ops in a_funcs.values()):
         raise AssertionError("a function of kernel A lacks integer tensor-core instructions")
@@ -337,9 +344,10 @@ def kernel_phase(dev, image: int):
           f"torch._int_mm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms", flush=True)
 
     # kernel C: float conv0 (int8 off), bf16 (the training route at
-    # --opt_lvl >= 1; tensor cores, held within conv0_f_bound) and f32
-    # (--opt_lvl 0; bit-equal); the library yardstick is cuDNN's conv alone
-    # (no bias, ReLU or pool), in full f32 for f32 (TF32 off)
+    # --opt_lvl >= 1) and f32 (--opt_lvl 0; 3xTF32), both on the tensor
+    # cores and held within conv0_f_bound; the library yardstick is cuDNN's
+    # conv alone (no bias, ReLU or pool), in full f32 for f32 (TF32 off:
+    # with TF32 on, cuDNN computes a less accurate function)
     for dt, label in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
         for b in (2, BATCH):
             x = (torch.randn((b, image, image, 3), generator=g) * 1.5).to(dev, dt)
@@ -348,14 +356,15 @@ def kernel_phase(dev, image: int):
             k = lambda: conv_stage1.conv0_f(x, w, bias)          # noqa: E731
             p = lambda: conv_stage1.conv0_f_plain(x, w, bias)    # noqa: E731
             ref = p()
-            tol = conv_stage1.conv0_f_bound(x, w, ref) if label == "bf16" else None
+            tol = conv_stage1.conv0_f_bound(x, w, ref)
             check("conv0_f", label, f"b{b} {label}", k(), ref, tol)
             del ref, tol
             if b == 2:
                 continue
             ms, pms = timed_pair(k, p)
             w32, b32 = conv_stage1.conv0_f_operands(x, w, bias)
-            lms = timed(lambda: conv_stage1.launch_conv0_f(x, w32, b32))
+            wk = conv_stage1.conv0_f_kernel_weights(x, w32)
+            lms = timed(lambda: conv_stage1.launch_conv0_f(x, wk, b32))
             x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
             tf32 = torch.backends.cudnn.allow_tf32
             torch.backends.cudnn.allow_tf32 = False
@@ -365,13 +374,22 @@ def kernel_phase(dev, image: int):
             finally:
                 torch.backends.cudnn.allow_tf32 = tf32
             out = k()
-            bms, by = bound(nbytes(x, w, bias, out), 2.0 * b * image * image * 27 * 64,
-                            BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+            moved, macs = nbytes(x, w, bias, out), b * image * image * 27 * 64
+            if dt == torch.bfloat16:
+                bms, by = bound(moved, 2.0 * macs, BF16_FLOPS)
+                old = ""
+            else:
+                bms, by = bound(moved, 3 * 2.0 * macs, TF32_FLOPS)
+                cc_ms, cc_by = bound(moved, 2.0 * macs, F32_FLOPS)
+                row("conv0_f", label)["cuda_core_bound_ms"] = cc_ms
+                old = (f"; CUDA-core f32 bound of earlier slices {cc_ms:.4f} ms ({cc_by}, "
+                       f"{100 * cc_ms / lms:.1f}% of it at launch)")
             del out
             record("conv0_f", label, ms, lms, pms, bms, by, cms)
             print(f"time conv0_f {tag} b{b} {label}: wrapper {ms:.4f} ms, launch {lms:.4f} ms, "
                   f"plain {pms:.4f} ms, F.conv2d (conv only) {cms:.4f} ms, bound {bms:.4f} ms "
-                  f"({by}, {100 * bms / ms:.1f}% of bound)", flush=True)
+                  f"({by}, {100 * bms / ms:.1f}% of bound, {100 * bms / lms:.1f}% at launch)"
+                  f"{old}", flush=True)
             del x
     return rows
 
@@ -641,8 +659,13 @@ def main() -> int:
     _build.build_all()
     print(f"build: {len(_build.KERNELS)} kernels in {time.perf_counter() - t0:.2f} s", flush=True)
     for k in _build.KERNELS:
-        regs = [ln.strip() for ln in k.build_log.splitlines() if "registers" in ln]
+        regs = [ln.strip() for ln in k.build_log.splitlines()
+                if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
         print(f"build {k.source}: {regs}", flush=True)
+    # ptxas -v: kernel C's bodies hold their fragments in registers, unspilled
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", _build.CONV0_F.build_log)
+    if any(int(n) for n in spills):
+        raise AssertionError(f"kernel C spills registers: {spills}")
 
     sass_counts()
     dev = torch.device("cuda")
@@ -668,15 +691,17 @@ def main() -> int:
                 "max_abs_err": max(v["max_abs_err"] for rs in rows.values()
                                    for (name, _), v in rs.items() if name == k.symbol),
                 **{f: r[f] for f in ("ms", "launch_ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms")}}
+                                     "library_ms", "cuda_core_bound_ms") if f in r}}
 
     # the JSON line's modes: kernel A's requant, kernel B's conv1-7 static
-    # path summed, kernel C in bf16; every mode at 224² on the line above it
+    # path summed, kernel C in bf16; every mode at 448² and at 224² on the
+    # lines above it
     json_modes = {"conv0_s2d_i8": "static requant", "conv3x3_i8": "static", "conv0_f": "bf16"}
-    print("kernels at 224² (b32; baseline and bert): " + json.dumps([
-        {**kernel_fields(IMAGE_224, k, mode), "mode": mode}
-        for k in _build.KERNELS for (name, mode) in rows[IMAGE_224] if name == k.symbol]),
-        flush=True)
+    for image, models in ((IMAGE, "attention"), (IMAGE_224, "baseline and bert")):
+        print(f"kernels at {image}² (b32; {models}): " + json.dumps([
+            {**kernel_fields(image, k, mode), "mode": mode}
+            for k in _build.KERNELS for (name, mode) in rows[image] if name == k.symbol]),
+            flush=True)
     by_path = {**{f"serve {m}": v for m, v in serve_launches.items()}, **train_launches}
     print("launches by path: " + json.dumps(by_path), flush=True)
     # launches: kernels A and B from the attention model's serving path,

@@ -7,10 +7,11 @@ On a machine with a card and nvcc, run the card tests with
 
 (``--noconftest``: the suite's conftest sets up JAX). There each kernel mode
 must equal its plain version bit for bit, at odd shapes that exercise the
-tile edges, except kernel C in bf16, which sums on the tensor cores in
-another order and is held within ``conv_stage1.conv0_f_bound``. Without a
-card those tests skip; the dispatch contract, the weight layouts and the
-soundness of that bound run everywhere.
+tile edges, except kernel C, which sums on the tensor cores in another
+order (in f32 through 3xTF32) and is held within
+``conv_stage1.conv0_f_bound``. Without a card those tests skip; the
+dispatch contract, the weight layouts, a model of kernel C's 3xTF32
+arithmetic and the soundness of that bound run everywhere.
 """
 
 import os
@@ -251,7 +252,108 @@ def test_kernel_a_epilogue_equals_plain_epilogue(out):
         assert torch.equal(got, want)
 
 
-def _conv0_bf16_in_order(x, w, b, order):
+def _tf32_rna(v):
+    """f32 -> TF32 (10 mantissa bits), to nearest, ties away from zero, by
+    bit operations on the int32 view: add half a TF32 ulp to the magnitude
+    bits, clear the 13 low bits (``cvt.rna.tf32.f32`` on finite values)."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + (1 << 12)) & ~((1 << 13) - 1)).view(torch.float32)
+
+
+def _kernel_c_f32_index(t, j, r):
+    """Kernel C's f32 A fragment entry [t, part, j, r] of thread t = 32w + 4g
+    + q: slot q of tap 2j + r // 2 of output channel 16w + g + 8 (r % 2)
+    (zero for slot 3 and tap 9), as (row of the [27, 64] weights, 27 = a
+    zero; channel)."""
+    w, g, q = t // 32, t % 32 // 4, t % 4
+    tap = 2 * j + r // 2
+    return torch.where((tap < 9) & (q < 3), 3 * tap + q, 27), 16 * w + g + 8 * (r % 2)
+
+
+def test_kernel_c_f32_weight_split_rebuilds_weights():
+    """hi + lo gives w within 2^-22 relative; both are TF32 (13 low mantissa
+    bits zero); hi is w rounded to nearest TF32, ties away from zero."""
+    rng = np.random.default_rng(13)
+    w = rng.standard_normal((27, 64)) * 10.0 ** rng.uniform(-4, 4, (27, 64))
+    w[0, [0, 8, 16, 24]] = [1 + 2.0 ** -11, -(1 + 3 * 2.0 ** -12), 2.0 ** -126, 0]   # ties, tiny, zero
+    w32 = torch.from_numpy(w.astype(np.float32))
+    wa = conv_stage1.pack_conv0_f32_weights(w32)
+    assert tuple(wa.shape) == (128, 2, 5, 4) and wa.dtype == torch.float32
+    hi, lo = wa[:, 0], wa[:, 1]
+    for part in (hi, lo):
+        assert int((part.contiguous().view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    k, o = _kernel_c_f32_index(torch.arange(128)[:, None, None], torch.arange(5)[None, :, None],
+                               torch.arange(4)[None, None, :])
+    want = torch.cat([w32, torch.zeros(1, 64)])[k, o]
+    assert torch.equal(hi, _tf32_rna(want))
+    rel = (hi.double() + lo.double() - want.double()).abs() / want.double().abs().clamp_min(1e-300)
+    assert float(rel.max()) <= 2.0 ** -22
+    assert float(hi[0, 0, 0]) == 1 + 2.0 ** -10 and float(lo[0, 0, 0]) == -(2.0 ** -11)
+
+
+def test_kernel_c_f32_weight_layout_matches_index_formula():
+    """Register r of thread (w, g, q) in k-step j holds slot q (c0, c1, c2,
+    then a zero) of tap 2j + r // 2 (tap = 3 kh + kw; tap 9 zero) of output
+    channel 16w + g + 8 (r % 2): the m64nNk8 TF32 A layout, rows g and g + 8
+    of warp w's 16, K columns q and q + 4."""
+    rng = np.random.default_rng(14)
+    w = torch.from_numpy(rng.standard_normal((3, 3, 3, 64)).astype(np.float32))
+    wa = conv_stage1.pack_conv0_f32_weights(w.reshape(27, 64))
+    for wp in range(4):
+        for g in range(8):
+            for q in range(4):
+                for j in range(5):
+                    for r in range(4):
+                        tap, o = 2 * j + r // 2, 16 * wp + g + 8 * (r % 2)
+                        want = float(w[tap // 3, tap % 3, q, o]) if tap < 9 and q < 3 else 0.0
+                        t = 32 * wp + 4 * g + q
+                        got = float(wa[t, 0, j, r]) + float(wa[t, 1, j, r])
+                        assert abs(got - want) <= 2.0 ** -22 * abs(want)
+
+
+def _add_rz(a, b):
+    """a + b in f32, rounded toward zero (from the exact sum in float64)."""
+    s = a.double() + b.double()
+    r = s.float()
+    return torch.where(r.double().abs() > s.abs(), torch.nextafter(r, torch.zeros_like(r)), r)
+
+
+def _conv0_f32_as_kernel_c(x, w, b, truncate):
+    """Kernel C's f32 body (csrc/conv0_f.cu, 3xTF32) in PyTorch: each
+    activation split into rna_tf32 hi and lo, the weights as
+    ``pack_conv0_f32_weights`` splits them (rebuilt from the packed A
+    fragments), K = 9 taps x 4 slots (c0, c1, c2, 0) zero-padded to 40, and
+    per k-step of 8 (two taps) three MMAs into one f32 accumulator: lo_x * hi_w,
+    hi_x * lo_w, hi_x * hi_w. An MMA adds its 8 exact products to the
+    accumulator with one rounding to nearest, or (``truncate``) as 8 f32
+    adds in turn, each rounded toward zero. Then the phase max, + bias, ReLU."""
+    bsz, h, wd, c = x.shape
+    wa = conv_stage1.pack_conv0_f32_weights(w.float().reshape(27, 64))
+    wm = torch.zeros(2, 40, 64)                        # [hi/lo, k = 8j + 4 (r // 2) + q, channel]
+    for t in range(128):
+        for r in range(4):
+            k = 8 * torch.arange(5) + 4 * (r // 2) + t % 4
+            wm[:, k, 16 * (t // 32) + t % 32 // 4 + 8 * (r % 2)] = wa[t, :, :, r]
+    xp = F.pad(x.float(), (0, 1, 1, 1, 1, 1))          # a zero 4th slot
+    cols = torch.cat([xp[:, kh:kh + h, kw:kw + wd] for kh in range(3) for kw in range(3)], -1)
+    cols = F.pad(cols, (0, 4))                         # [B, H, W, 40]: tap 9 is zero
+    xh = _tf32_rna(cols)
+    xl = _tf32_rna(cols - xh)
+    acc = torch.zeros((bsz, h, wd, 64))
+    for s in range(5):
+        ks = slice(8 * s, 8 * s + 8)
+        for a, bm in ((xl, wm[0]), (xh, wm[1]), (xh, wm[0])):
+            prods = a[..., ks, None] * bm[ks]          # exact: TF32 x TF32 fits f32
+            if truncate:
+                for i in range(8):
+                    acc = _add_rz(acc, prods[..., i, :])
+            else:
+                acc = (acc.double() + prods.double().sum(-2)).float()
+    m = acc.reshape(bsz, h // 2, 2, wd // 2, 2, -1).amax(dim=(2, 4))
+    return torch.relu(m + b.float())
+
+
+def _conv0_f_in_order(x, w, b, order):
     """``conv0_f_plain`` with its 27 exact f32 products summed in another
     order: ``reversed`` taps, or a ``pairwise`` tree."""
     bsz, h, wd, c = x.shape
@@ -272,20 +374,50 @@ def _conv0_bf16_in_order(x, w, b, order):
     return torch.relu(m + b.to(x.dtype).float()).to(x.dtype)
 
 
-@pytest.mark.parametrize("order", ["reversed", "pairwise"])
-def test_kernel_c_bf16_bound_covers_other_summation_orders(order):
-    """The bound that holds kernel C's bf16 mode (tensor-core order) holds
-    the plain version summed in other orders too, at (2, 36, 70, 3)."""
+# (mode, summation, inputs): bf16 in other orders of exact products; f32
+# through the 3xTF32 model, its MMAs rounding once or truncating each add, on
+# random inputs and on inputs with cancellation (mixed signs, magnitudes 1e-3
+# to 1e3), and in another order of the plain version's products
+KERNEL_C_BOUND_CASES = {
+    "reversed": ("bfloat16", "reversed", "random"),
+    "pairwise": ("bfloat16", "pairwise", "random"),
+    "float32-3xtf32": ("float32", "3xtf32", "random"),
+    "float32-3xtf32_truncating": ("float32", "3xtf32_truncating", "random"),
+    "float32-3xtf32-cancellation": ("float32", "3xtf32", "cancellation"),
+    "float32-3xtf32_truncating-cancellation": ("float32", "3xtf32_truncating", "cancellation"),
+    "float32-pairwise": ("float32", "pairwise", "random"),
+}
+
+
+@pytest.mark.parametrize("case", list(KERNEL_C_BOUND_CASES))
+def test_kernel_c_bf16_bound_covers_other_summation_orders(case):
+    """The bound that holds kernel C (tensor-core order; f32 through 3xTF32)
+    holds the plain version summed in other orders and the model of the
+    3xTF32 body, at (2, 36, 70, 3), and is not vacuous."""
+    mode, order, values = KERNEL_C_BOUND_CASES[case]
     g = torch.Generator().manual_seed(2)
-    x = torch.randn((2, 36, 70, 3), generator=g).to(torch.bfloat16)
-    w = torch.randn((3, 3, 3, 64), generator=g) * 0.2
+    if values == "random":
+        x = torch.randn((2, 36, 70, 3), generator=g)
+        w = torch.randn((3, 3, 3, 64), generator=g) * 0.2
+    else:
+        def spread(*shape):
+            sign = torch.randint(0, 2, shape, generator=g) * 2.0 - 1
+            return sign * 10.0 ** (torch.rand(shape, generator=g) * 6 - 3)
+        x, w = spread(2, 36, 70, 3), spread(3, 3, 3, 64) * 1e-3
     b = torch.randn(64, generator=g) * 0.1
+    x = x.to(TORCH_DT[mode])
     ref = conv_stage1.conv0_f_plain(x, w, b)
-    other = _conv0_bf16_in_order(x, w, b, order)
+    if order.startswith("3xtf32"):
+        other = _conv0_f32_as_kernel_c(x, w, b, truncate=order.endswith("truncating"))
+    else:
+        other = _conv0_f_in_order(x, w, b, order)
     diff = (other.float() - ref.float()).abs()
     bound = conv_stage1.conv0_f_bound(x, w, ref)
     assert bool((diff <= bound).all()), float((diff - bound).max())
-    assert float(bound.max()) < 0.05 * float(ref.float().abs().max())
+    limit = 0.05 if mode == "bfloat16" else 1e-4
+    assert float(bound.max()) < limit * float(ref.float().abs().max())
+    if mode == "float32":
+        assert float((diff / bound.clamp_min(1e-38)).max()) > 0      # the split is not exact
 
 
 @pytest.fixture
@@ -439,12 +571,15 @@ def test_kernel_b_rejects_unsupported_channels_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 36, 70), (2, 224, 224)], ids=["ragged", "224"])
+@pytest.mark.parametrize("shape", [(2, 36, 70), (2, 224, 224), (2, 448, 448)],
+                         ids=["ragged", "224", "448"])
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
 def test_kernel_c_matches_plain_on_card(cuda, mode, shape):
-    """f32: bit-equal. bf16: within ``conv0_f_bound`` (tensor-core order).
-    At 224² the pooled 112 x 112 map is less than one 128-pixel bf16 tile
-    per row pair."""
+    """Both modes within ``conv0_f_bound`` (tensor-core order; f32 through
+    3xTF32). At 224² the pooled 112 x 112 map is less than one 128-pixel
+    bf16 tile per row pair and 3.5 f32 units of 32 pooled columns (the last
+    unit's right half lies past the edge); at 448², 7 units; at 36 x 70, 18
+    pooled rows end in a partial unit of 4 and 35 pooled columns in one of 3."""
     g = torch.Generator().manual_seed(2)
     x = torch.randn((*shape, 3), generator=g).to(cuda, TORCH_DT[mode])
     w = (torch.randn((3, 3, 3, 64), generator=g) * 0.2).to(cuda)
@@ -454,11 +589,8 @@ def test_kernel_c_matches_plain_on_card(cuda, mode, shape):
     assert _build.CONV0_F.launches == 1 and out.dtype == TORCH_DT[mode]
     ref = conv_stage1.conv0_f_plain(x, w, b)
     assert _build.CONV0_F.launches == 1 and _build.CONV0_F.plain_on_cuda == 1
-    if mode == "float32":
-        assert torch.equal(out, ref)
-    else:
-        diff = (out.float() - ref.float()).abs()
-        assert bool((diff <= conv_stage1.conv0_f_bound(x, w, ref)).all())
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= conv_stage1.conv0_f_bound(x, w, ref)).all())
 
 
 @pytest.mark.cuda
@@ -470,17 +602,18 @@ def test_kernels_repeat_bit_for_bit_on_card(cuda):
     w0 = torch.randint(-127, 128, (3, 3, 3, 64), generator=g, dtype=torch.int8).to(cuda)
     x1 = torch.randint(-127, 128, (2, 13, 22, 128), generator=g, dtype=torch.int8).to(cuda)
     w1 = torch.randint(-127, 128, (3, 3, 128, 256), generator=g, dtype=torch.int8).to(cuda)
-    xf = torch.randn((2, 36, 70, 3), generator=g).to(cuda, torch.bfloat16)
+    xf = torch.randn((2, 36, 70, 3), generator=g).to(cuda)
     wf = (torch.randn((3, 3, 3, 64), generator=g) * 0.2).to(cuda)
     s64, s256 = torch.full((64,), 1e-4, device=cuda), torch.full((256,), 1e-6, device=cuda)
     calls = [lambda: conv_stage1.conv0_i8(x0, w0, s64, s64, out_dtype=torch.bfloat16),
              lambda: conv_hpack.int8_conv3x3(x1, w1, s256, s256, pool=True,
                                              out_dtype=torch.bfloat16),
+             lambda: conv_stage1.conv0_f(xf.bfloat16(), wf, s64),
              lambda: conv_stage1.conv0_f(xf, wf, s64)]
     _build.reset_counts()
     for call in calls:
         assert torch.equal(call(), call())
-    assert all(k.launches == 2 for k in _build.KERNELS)
+    assert [k.launches for k in _build.KERNELS] == [2, 2, 4]
 
 
 @pytest.mark.cuda

@@ -18,8 +18,8 @@ Tolerances, stated once:
 
 The CUDA kernels themselves are held to these plain versions by
 tests/test_torch_kernels.py and chip_smoke.py on the card: bit for bit,
-except kernel C in bf16, which sums on the tensor cores in another order
-and is held within ``conv_stage1.conv0_f_bound``.
+except kernel C, which sums on the tensor cores in another order (in f32
+through 3xTF32) and is held within ``conv_stage1.conv0_f_bound``.
 """
 
 import numpy as np

@@ -277,3 +277,33 @@ def test_device_cuda_without_card_exits_nonzero(cli_data):
                            *args], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert "no CUDA device" in proc.stderr
+
+
+@pytest.mark.parametrize("opt_lvl", [0, 1])
+def test_profile_train_rehearses_each_opt_lvl(tmp_path, monkeypatch, opt_lvl):
+    """``profile_train --opt_lvl`` builds the model and the preprocessor at
+    that level (0: f32 throughout, conv0 = kernel C in f32; 1: bf16) and
+    runs both measurements; on the CPU a rehearsal, with no device numbers."""
+    from vqa_tpu_torch import profile_train
+
+    seen = []
+    real = t_steps.make_train_step
+
+    def spy():
+        step = real()
+
+        def run(state, batch):
+            seen.append(batch["image"].dtype)
+            return step(state, batch)
+        return run
+
+    monkeypatch.setattr(profile_train, "ANSWERS", K)
+    monkeypatch.setattr("vqa_tpu_torch.train.steps.make_train_step", spy)
+    monkeypatch.chdir(tmp_path)
+    out = tmp_path / "p.json"
+    summary = profile_train.main(["--model", "attention", "--device", "cpu", "--opt_lvl",
+                                  str(opt_lvl), "--image_size", str(S), "--batch_size", "2",
+                                  "--steps", "1", "--num_workers", "1", "--out", str(out)])
+    assert summary["opt_lvl"] == opt_lvl and summary["route"] == "float (kernel C)"
+    assert summary["peak_memory_gib"] is None and json.loads(out.read_text())["steps"] == 1
+    assert seen and set(seen) == {torch.float32 if opt_lvl == 0 else torch.bfloat16}

@@ -10,9 +10,9 @@ phases gives the same sums:
   :func:`conv0_i8` is its wrapper.
 - float route (int8 off): kernel C (``csrc/conv0_f.cu``), the port of
   ``_kernel`` / ``_kernel_v2`` / ``_kernel_wide``. :func:`conv0_f` is its
-  wrapper. Its f32 mode is bit-equal to :func:`conv0_f_plain`; its bf16
-  mode sums on the tensor cores in another order and is held within
-  :func:`conv0_f_bound`.
+  wrapper. Both its modes sum on the tensor cores, in another order than
+  :func:`conv0_f_plain` (f32 through 3xTF32, with the weights split by
+  :func:`pack_conv0_f32_weights`), and are held within :func:`conv0_f_bound`.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
 plain version (:func:`conv0_i8_plain`, :func:`conv0_f_plain`, the same
@@ -144,13 +144,11 @@ def conv0_f_plain(x, w, b):
     The 27 products (x.dtype operands widened to f32, separate f32
     multiplies) are summed into f32 in one fixed order, taps (kh, kw, c)
     row-major, starting from zero; the 2x2 pool is a max over the f32 sums;
-    then + b (b rounded to x.dtype), ReLU, one rounding to x.dtype. That
-    order is the HWIO weight layout read front to back and needs no
-    reduction tree, so kernel C's f32 mode follows it step for step with
-    ``__fadd_rn(acc, __fmul_rn(x, w))`` and the two are bit-equal on the
-    card; its bf16 mode (tensor cores) is within :func:`conv0_f_bound`. It
-    differs from vqa_tpu's CPU fallback ``_xla_reference``, which
-    rounds the conv to x.dtype before the bias.
+    then + b (b rounded to x.dtype), ReLU, one rounding to x.dtype. Kernel C
+    sums on the tensor cores in its own order (in f32 through 3xTF32) and
+    is held within :func:`conv0_f_bound` of this version. It differs from
+    vqa_tpu's CPU fallback ``_xla_reference``, which rounds the conv to
+    x.dtype before the bias.
     """
     if x.is_cuda:
         CONV0_F.plain_on_cuda += 1
@@ -182,36 +180,89 @@ def conv0_f(x, w, b):
     if h % 2 or wd % 2:
         raise ValueError(f"conv0_f: H and W must be even, got {h}x{wd}")
     x = x.contiguous()
-    return launch_conv0_f(x, *conv0_f_operands(x, w, b))
+    w32, b32 = conv0_f_operands(x, w, b)
+    return launch_conv0_f(x, conv0_f_kernel_weights(x, w32), b32)
 
 
-def launch_conv0_f(x, w32, b32):
+def tf32_rna(v):
+    """f32 rounded to TF32 (10 mantissa bits), to nearest with ties away
+    from zero, the 13 low bits zero: ``cvt.rna.tf32.f32`` on finite values."""
+    bits = v.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _conv0_f32_fragment_index(device: str) -> torch.Tensor:
+    """Where each value of kernel C's f32 A fragments comes from in the
+    [27, 64] weights flattened with one zero appended (index 1728)."""
+    w, g, q, j, r = np.meshgrid(*map(np.arange, (4, 8, 4, 5, 4)), indexing="ij")
+    tap, o = 2 * j + r // 2, 16 * w + g + 8 * (r % 2)   # tap (kh, kw), output channel
+    idx = np.where((tap < 9) & (q < 3), (3 * tap + q) * 64 + o, 27 * 64)
+    return torch.from_numpy(idx.reshape(128, 1, 5, 4)).to(device)
+
+
+def pack_conv0_f32_weights(w32):
+    """Kernel C's f32 weights as its ``wgmma`` A fragments (the weights are
+    the M = 64 side), split once into hi = rna_tf32(w) and lo = rna_tf32(w -
+    hi): [27, 64] f32 -> f32 [128 (thread 32w + 4g + q), 2 (hi, lo), 5
+    (k-step j), 4 (register r)]. K-step j holds taps 2j and 2j + 1 (tap = 3
+    kh + kw), 4 slots each (c0, c1, c2, 0); register r of thread (w, g, q)
+    is slot q of tap 2j + r // 2 (zero for slot 3 and tap 9) of output
+    channel 16w + g + 8 (r % 2), the m64nNk8 TF32 register layout.
+    """
+    flat = torch.cat([w32.reshape(-1).float(), w32.new_zeros(1, dtype=torch.float32)])
+    v = flat[_conv0_f32_fragment_index(str(w32.device))]
+    hi = tf32_rna(v)
+    return torch.cat([hi, tf32_rna(v - hi)], dim=1).contiguous()
+
+
+def conv0_f_kernel_weights(x, w32):
+    """The weights as kernel C takes them for ``x.dtype``: the f32 body's
+    split A fragments, or ``w32`` itself for the bf16 body."""
+    return pack_conv0_f32_weights(w32) if x.dtype == torch.float32 else w32
+
+
+def launch_conv0_f(x, wk, b32):
     """Launch kernel C on operands already in its layout: ``x`` contiguous
-    NHWC on the card, ``w32``/``b32`` from ``conv0_f_operands``."""
+    NHWC on the card, ``wk`` from :func:`conv0_f_kernel_weights`, ``b32``
+    from :func:`conv0_f_operands`."""
     bsz, h, wd, _ = x.shape
     out = torch.empty((bsz, h // 2, wd // 2, 64), dtype=x.dtype, device=x.device)
-    CONV0_F.launch(x.data_ptr(), w32.data_ptr(), b32.data_ptr(), out.data_ptr(),
+    CONV0_F.launch(x.data_ptr(), wk.data_ptr(), b32.data_ptr(), out.data_ptr(),
                    bsz, h, wd, _MODES[x.dtype])
     return out
 
 
 def conv0_f_bound(x, w, plain):
-    """Kernel C's bf16 tolerance, per element of its output:
-    ``ulp_bf16(|plain|) + 2^-17 * sum_taps |x * w|``.
+    """Kernel C's tolerance, per element of its output:
+    ``ulp(|plain|) + c * sum_taps |x * w|`` with ``(ulp_bf16, c = 2^-17)``
+    for bf16 and ``(ulp_f32, c = 2^-15)`` for f32. The sum of |x * w| is the
+    plain version on |x| and |w| in f32 (bias 0): the largest of the four
+    pool phases, as the max takes one. With S = sum |x * w| and u = 2^-23:
 
-    The tensor cores sum the 27 exact bf16 x bf16 products in f32 in another
-    order than ``conv0_f_plain`` (each of ~32 additions within about one f32
-    ulp of a partial sum no larger than the sum of |x * w|), and both round
-    once to bf16. The sum of |x * w| is the plain version on |x| and |w| in
-    f32 (bias 0): the largest of the four pool phases, as the max takes one.
+    - bf16: the tensor cores sum the 27 exact bf16 x bf16 products in f32 in
+      another order than ``conv0_f_plain`` (each of ~32 additions within
+      about one f32 ulp of a partial sum no larger than S), and both round
+      once to bf16.
+    - f32 (3xTF32): hi and lo of each operand leave it within 2^-22 of its
+      value, so lo_x hi_w + hi_x lo_w + hi_x hi_w misses x w by at most
+      about 3 * 2^-22 |x w|: 6u S in all. The kernel adds these exact TF32
+      products in 15 MMAs (5 k-steps x 3), each adding 8 products to its
+      accumulator; a tensor core that aligns the 9 terms to the largest and
+      truncates loses under one unit of 2^-23 times that term (<= S) per
+      term: 135u S. The plain version rounds its 27 products and 27 sums to
+      nearest: 27u S. 168u S < 2^-15 S = 256u S, the margin for the ~2^-20
+      relative slack in those terms. Max and ReLU move no difference up;
+      each side's bias add rounds to nearest once: ulp_f32(|plain|).
     """
     wa = w.to(x.device, x.dtype).abs().float()
     sum_abs = conv0_f_plain(x.abs().float(), wa, torch.zeros(wa.shape[-1], device=x.device))
     mag = plain.float().abs()
+    bits, c = (8, 2.0 ** -17) if x.dtype == torch.bfloat16 else (24, 2.0 ** -15)
     _, e = torch.frexp(mag)                         # mag = m * 2^e, m in [0.5, 1)
-    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - 8),
+    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - bits),
                       torch.zeros_like(mag))
-    return ulp + sum_abs * 2.0 ** -17
+    return ulp + sum_abs * c
 
 
 def conv0_bn_relu_pool(x, w, b, *, int8: bool = False, s_x=None):

@@ -1,13 +1,14 @@
 """Where a training step's time goes, on the card.
 
     python -m vqa_tpu_torch.profile_train [--model attention|baseline|bert]
-        [--steps 6] [--batch_size 32] [--int8_backbone false|auto]
+        [--steps 6] [--batch_size 32] [--opt_lvl 1|0] [--int8_backbone false|auto]
         [--out build/profile_train.json]
 
 Trains one model family at full width (``config.MODEL_CONFIGS``: attention
 at 448², baseline and bert at 224²; K = 1001, vocab 10,000, question length
-23; random weights from seed 0) on synthetic images, at ``--opt_lvl 1``, on
-the float route by default (conv0 = kernel C). Two measurements, each after
+23; random weights from seed 0) on synthetic images, at ``--opt_lvl 1``
+(bf16 compute) or ``--opt_lvl 0`` (f32 throughout, kernel C in f32), on the
+float route by default (conv0 = kernel C). Two measurements, each after
 2 warm-up steps:
 
 1. pieces: each part of a step timed alone, with the card synchronized
@@ -88,13 +89,15 @@ def main(argv=None) -> dict:
     ap.add_argument("--model", default="attention", choices=["attention", "baseline", "bert"])
     ap.add_argument("--steps", type=int, default=6)
     ap.add_argument("--batch_size", type=int, default=32)
+    ap.add_argument("--opt_lvl", type=int, default=1, choices=[0, 1],
+                    help="1: bf16 compute; 0: f32 throughout (kernel C in f32)")
     ap.add_argument("--int8_backbone", default="false", choices=["auto", "false"])
     ap.add_argument("--num_workers", type=int, default=8)
     ap.add_argument("--image_size", type=int, default=0, help="0 = the model's")
     ap.add_argument("--device", default="cuda", help="'cpu' only to rehearse the script")
     ap.add_argument("--out", default=os.path.join("build", "profile_train.json"))
     args = ap.parse_args(argv)
-    from .config import build_model, resolve_device
+    from .config import build_model, compute_dtype_for_opt_lvl, resolve_device
     from .data.dataset import VQASamples
     from .data.pipeline import DataLoader, device_batch, device_prefetch, \
         make_image_preprocessor
@@ -114,11 +117,11 @@ def main(argv=None) -> dict:
     work = os.path.join("build", "profile_train")
     vocab_file, data = _write_data(work, bs * (2 * n + 2) + bs)
     vocab = Vocab.load(vocab_file)
-    model, cfg = build_model(args.model, vocab.size, ANSWERS + 1, device=dev, opt_lvl=1,
+    model, cfg = build_model(args.model, vocab.size, ANSWERS + 1, device=dev, opt_lvl=args.opt_lvl,
                              int8_backbone=None if args.int8_backbone == "auto" else False,
                              max_seq_length=SEQ_LEN, generator=torch.Generator().manual_seed(0))
     size = args.image_size or cfg.image_size
-    preprocess = make_image_preprocessor(size, torch.bfloat16, dev)
+    preprocess = make_image_preprocessor(size, compute_dtype_for_opt_lvl(args.opt_lvl), dev)
     samples = VQASamples(data, work, vocab.word2idx, vocab.label2idx, vocab.max_seq_length)
     loader = DataLoader(samples, bs, host_size=size, num_workers=args.num_workers,
                         synthetic_images=True, pin_memory=on_card)
@@ -197,7 +200,7 @@ def main(argv=None) -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip() if on_card else ""
     summary = {
-        "card": card, "clocks_power_after": smi, "model": args.model,
+        "card": card, "clocks_power_after": smi, "model": args.model, "opt_lvl": args.opt_lvl,
         "image_size": size, "route": "int8" if model.int8_stages
         else "float (kernel C)", "batch": bs, "steps": n, "pieces_median_ms": medians,
         "loop_ms_per_step": wall_ms / n, "loop_qa_per_s": bs * n / (wall_ms / 1e3),
