@@ -57,7 +57,20 @@ without CUDA it exits non-zero before printing any result):
    losses within RESUME_RTOL of the uninterrupted run's, each through
    ``--mode test``; then 2 steps of the default int8 route (calibration,
    kernels A and B) for the attention and bert models. Each run zeroes the
-   counts just before and reads them just after.
+   counts just before and reads them just after;
+7. the slice's training paths, on the same 192 and 64 lines at batch 32:
+   the attention model with ``--vgg_train true --opt_lvl 1`` at 448² (the
+   VGG trains through cuDNN with batch-stats BatchNorm and remat, Adam over
+   every parameter; no kernel launches), 6 finite steps with a VGG conv
+   weight moved off its initial value, steps 3-6 QA/s and the peak device
+   memory, its resume from step 3 within VGG_RESUME_RTOL, then ``--mode
+   test``; the baseline with ``--bn_mode batch`` on the default int8 route
+   at 224² and ``--profile_steps 2``: kernels A and B launched by the
+   calibration and the eval batches only (train steps take batch statistics
+   and bypass them), the running stats moved and every VGG parameter not,
+   and a non-empty trace in the run directory; 2 steps of the attention
+   model with ``--grad_accum 2`` on the int8 route: kernel A once per
+   calibration batch, microbatch and eval batch, kernel B 7 times as often.
 
 Per-path launch counts go on a line of their own. The line before the last
 is a JSON object of per-kernel launches (kernels A and B: the attention
@@ -89,6 +102,13 @@ N_TRAIN, N_VAL = 192, 64
 # among them) need not sum in the same order in two runs, so the losses are
 # held to a relative tolerance instead of bit-equality
 RESUME_RTOL = 1e-5
+# the trainable VGG's resume (--vgg_train true): its losses were bit-equal in
+# two runs on an H100 80GB HBM3 at 700 W, but cuDNN's weight-gradient
+# algorithms may sum with atomics, and in a trainable batch-stats tower fp32
+# summation-order differences grew to 2.5e-5 relative within 3 Adam steps
+# (the CPU parity runs of tests/test_torch_vgg_train.py): 1e-4 holds that
+# with a margin of 4
+VGG_RESUME_RTOL = 1e-4
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s, int8
 # tensor-core ops/s, bf16 tensor-core FLOP/s (f32 sums), f32 CUDA-core FLOP/s
 HBM_BPS, INT8_OPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 1979e12, 989e12, 67e12
@@ -636,10 +656,119 @@ def train_phase(vocab_file, card="", device="cuda"):
             raise AssertionError("int8_calib.json was not written")
         shutil.rmtree(out["log_dir"])
 
+    def initial_state(model):
+        """The model's weights as ``main`` initializes them (``--seed 0``)."""
+        from vqa_tpu_torch.config import build_model
+        from vqa_tpu_torch.vocab import Vocab
+        init, _ = build_model(model, Vocab.load(vocab_file).size, ANSWERS + 1, device="cpu",
+                              max_seq_length=SEQ_LEN, generator=torch.Generator().manual_seed(0))
+        return init.state_dict()
+
+    def vgg_train_route(model):
+        from vqa_tpu_torch.train.checkpoint import load_params_only
+        flags = ("--vgg_train", "true", "--opt_lvl", "1")
+        torch.cuda.reset_peak_memory_stats()
+        full, launches = run(model, "train vgg_train", "train", "vgg", *flags)
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        losses = full["losses"]
+        print(f"train {model} --vgg_train true: {full['steps']} steps, losses {losses}, "
+              f"eval batches {full['eval_batches']}", flush=True)
+        finite = all(v == v and abs(v) != float("inf") for v in losses)
+        if full["steps"] != N_TRAIN // BATCH or not finite:
+            raise AssertionError(f"the {model} --vgg_train run did not train 6 finite steps")
+        if any(launches.values()):
+            raise AssertionError(f"the {model} --vgg_train run launched a kernel: {launches}")
+        sync = dict(full["sync_points"])
+        steady = sync[6] - sync[2]
+        print(f"train {model} --vgg_train true ({card}): steps 3-6 {4 * BATCH / steady:.2f} "
+              f"QA/s, {1e3 * steady / 4:.2f} ms per step of {BATCH} (host clock, validation "
+              f"and checkpoint time taken out); peak device memory {peak_gib:.2f} GiB "
+              f"(max_memory_allocated)", flush=True)
+        key = "image_encoder.vgg11_encoder.0.weight"
+        moved = (load_params_only(os.path.join(full["log_dir"], "model_6.ckpt"))[key]
+                 - initial_state(model)[key]).abs().max().item()
+        print(f"train {model} --vgg_train true: {key} moved by up to {moved}", flush=True)
+        if not moved > 0:
+            raise AssertionError("the VGG did not train")
+
+        resumed, launches = run(model, "train vgg_train resume", "train", "vgg_resumed", *flags,
+                                "--model_ckpt", os.path.join(full["log_dir"], "model_3.ckpt"))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[3:]))
+        print(f"train {model} --vgg_train resume from step 3: losses {resumed['losses']} vs "
+              f"{losses[3:]}, max relative difference {rel} (tolerance {VGG_RESUME_RTOL})",
+              flush=True)
+        if resumed["first_step"] != 3 or resumed["steps"] != 3 or not rel <= VGG_RESUME_RTOL \
+                or any(launches.values()):
+            raise AssertionError(f"the resumed {model} --vgg_train run does not repeat steps 4-6")
+
+        res, launches = run(model, "test vgg_train", "test", "vgg", *flags, "--model_ckpt",
+                            os.path.join(full["log_dir"], "model_6.ckpt"))
+        print(f"test mode {model} --vgg_train true: {res}", flush=True)
+        if res["samples"] != N_VAL or not res["loss"] == res["loss"] or any(launches.values()):
+            raise AssertionError(f"{model} --vgg_train test mode failed")
+        shutil.rmtree(full["log_dir"])
+        shutil.rmtree(resumed["log_dir"])
+
+    def batch_stats_route(model):
+        from vqa_tpu_torch.train.checkpoint import load_params_only
+        out, launches = run(model, "train bn_batch", "train", "bn_batch", "--bn_mode", "batch",
+                            "--opt_lvl", "1", "--int8_calib", "1", "--profile_steps", "2")
+        # train steps take batch statistics (no int8 stage, no kernel); the
+        # calibration batch and the eval batches run the running-stats tower
+        forwards = 1 + out["eval_batches"]
+        print(f"train {model} --bn_mode batch: {out['steps']} steps, {out['eval_batches']} eval "
+              f"batches, 1 calibration batch, losses {out['losses']}", flush=True)
+        finite = all(v == v and abs(v) != float("inf") for v in out["losses"])
+        if out["steps"] != N_TRAIN // BATCH or not finite:
+            raise AssertionError(f"the {model} --bn_mode batch run did not train 6 finite steps")
+        sync = dict(out["sync_points"])
+        print(f"train {model} --bn_mode batch ({card}): steps 3-6 "
+              f"{4 * BATCH / (sync[6] - sync[2]):.2f} QA/s (host clock; the trace window "
+              f"included)", flush=True)
+        if launches["conv0_s2d_i8"] != forwards or launches["conv3x3_i8"] != 7 * forwards \
+                or launches["conv0_f"]:
+            raise AssertionError(f"{model} --bn_mode batch: kernels A and B did not run once "
+                                 f"and 7 times per calibration and eval forward only")
+        trained = load_params_only(os.path.join(out["log_dir"], "model_6.ckpt"))
+        init = initial_state(model)
+        vgg = [k for k in init if k.startswith("image_encoder.vgg11_encoder.")]
+        stats = [k for k in vgg if k.endswith(("running_mean", "running_var"))]
+        moved = [k for k in vgg if not torch.equal(trained[k], init[k])]
+        print(f"train {model} --bn_mode batch: {len(moved)} of {len(vgg)} VGG tensors moved, "
+              f"the {len(stats)} running stats among them: {sorted(moved) == sorted(stats)}",
+              flush=True)
+        if sorted(moved) != sorted(stats):
+            raise AssertionError("--bn_mode batch: the running stats did not move alone")
+        traces = [f for f in os.listdir(out["log_dir"]) if f.endswith(".pt.trace.json")]
+        sizes = [os.path.getsize(os.path.join(out["log_dir"], f)) for f in traces]
+        print(f"train {model} --profile_steps 2: traces {dict(zip(traces, sizes))}", flush=True)
+        if len(traces) != 1 or not sizes[0] > 0:
+            raise AssertionError("--profile_steps wrote no trace")
+        shutil.rmtree(out["log_dir"])
+
+    def grad_accum_route(model):
+        out, launches = run(model, "train grad_accum", "train", "accum", "--opt_lvl", "1",
+                            "--int8_calib", "1", "--grad_accum", "2", train_file=train_int8)
+        # one VGG forward per calibration batch, microbatch and eval batch
+        forwards = 1 + 2 * out["steps"] + out["eval_batches"]
+        print(f"train {model} --grad_accum 2: {out['steps']} steps, {out['eval_batches']} eval "
+              f"batches, losses {out['losses']}", flush=True)
+        finite = all(v == v and abs(v) != float("inf") for v in out["losses"])
+        if out["steps"] != 2 or not finite:
+            raise AssertionError(f"the {model} --grad_accum run did not train 2 finite steps")
+        if launches["conv0_s2d_i8"] != forwards or launches["conv3x3_i8"] != 7 * forwards \
+                or launches["conv0_f"]:
+            raise AssertionError(f"{model} --grad_accum 2: kernels A and B did not run once and "
+                                 f"7 times per forward")
+        shutil.rmtree(out["log_dir"])
+
     float_route("attention", ("--opt_lvl", "1", "--int8_backbone", "false"), "bf16")
     int8_route("attention")
     float_route("baseline", ("--opt_lvl", "0"), "f32, --opt_lvl 0")
     int8_route("bert")
+    vgg_train_route("attention")
+    batch_stats_route("baseline")
+    grad_accum_route("attention")
     return path_launches
 
 

@@ -79,14 +79,14 @@ def test_save_pth_file_loads_into_port(jax_attention, tmp_path):
 def test_only_attention_is_ported():
     """Named when only the attention model was ported; now all three
     families build and convert (tests/test_torch_{baseline,bert}.py hold
-    them to vqa_tpu), and what stays unported for them raises: a trainable
-    VGG (batch-stats BatchNorm) and an unknown name."""
+    them to vqa_tpu), a trainable VGG too (tests/test_torch_vgg_train.py),
+    with the same state-dict keys as the frozen one; an unknown name raises."""
     for name, size in (("attention", 448), ("baseline", 224), ("bert", 224)):
         model, cfg = build_model(name, 10, 3, device="cpu", opt_lvl=0)
         head = model.mlp_classify.W_h if name == "attention" else model.fc_final
         assert cfg.image_size == size and head.out_features == 3
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            build_model(name, 10, 3, device="cpu", vgg_trainable=True)
+        trainable, _ = build_model(name, 10, 3, device="cpu", vgg_trainable=True)
+        assert trainable.state_dict().keys() == model.state_dict().keys()
     bert, _ = build_model("bert", 10, 3, device="cpu", opt_lvl=0, max_seq_length=80)
     assert bert.question_encoder.position_embedding.shape == (80, 768)
     with pytest.raises(ValueError, match="unknown model"):

@@ -246,27 +246,11 @@ def test_pth_export_loads_for_serving_and_resume(cli_data, tmp_path):
 @pytest.mark.parametrize("flags", [
     ("--num_devices", "2"), ("--model_parallel", "2"), ("--fsdp", "true"),
     ("--seq_parallel", "true"), ("--force_mesh", "true"), ("--cache_features", "true"),
-    ("--ckpt_backend", "orbax"), ("--profile_steps", "3"), ("--vgg_train", "true"),
-    ("--bn_mode", "batch"), ("--grad_accum", "2"), ("--decode_backend", "native_mp"),
+    ("--ckpt_backend", "orbax"), ("--decode_backend", "native_mp"),
 ])
 def test_unported_flags_raise(cli_data, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         main(["--mode", "train", *_cli(cli_data, "x", *flags)])
-
-
-@pytest.mark.parametrize("name", ["baseline", "bert"])
-def test_unported_models_raise(cli_data, name):
-    """The baseline and bert families are ported (their CLI runs are above);
-    what stays unported for them raises as for the attention model: a
-    trainable VGG, batch-stats BatchNorm and ``s2d_first``."""
-    for flags in (("--vgg_train", "true"), ("--bn_mode", "batch")):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            main(["--mode", "train", *_cli(cli_data, "x", *flags, model=name)])
-    with pytest.raises(NotImplementedError, match="s2d_first"):
-        model, _ = build_model(name, V, K, opt_lvl=0, device="cpu", s2d_first=True,
-                               conv0_pallas=False)
-        model.eval()(torch.zeros((1, S, S, 3)), torch.ones((1, L), dtype=torch.long),
-                     torch.ones(1, dtype=torch.long))
 
 
 def test_device_cuda_without_card_exits_nonzero(cli_data):
@@ -289,8 +273,8 @@ def test_profile_train_rehearses_each_opt_lvl(tmp_path, monkeypatch, opt_lvl):
     seen = []
     real = t_steps.make_train_step
 
-    def spy():
-        step = real()
+    def spy(**kw):
+        step = real(**kw)
 
         def run(state, batch):
             seen.append(batch["image"].dtype)

@@ -199,7 +199,9 @@ def test_classifier_head_and_batch_stats_not_ported():
     ``VGG11Encoder(include_head=True)`` has the reference's ``conv_layers`` /
     ``fc_layers.{1,4}`` keys and maps [B, S, S, 3] to [B, 4096], at 224²
     and at sizes whose adaptive pool is not the identity. Batch-stats
-    BatchNorm (a trainable VGG) and ``s2d_first`` stay unported and raise."""
+    BatchNorm (a trainable VGG) and ``s2d_first`` are ported too
+    (tests/test_torch_vgg_train.py holds them against vqa_tpu): a trainable
+    VGG builds with every parameter trainable, and ``s2d_first`` runs."""
     head = VGG11Encoder(include_head=True).eval()
     keys = {k for k in head.state_dict() if k.startswith("fc_layers.")}
     assert keys == {f"fc_layers.{i}.{p}" for i in (1, 4) for p in ("weight", "bias")}
@@ -208,8 +210,8 @@ def test_classifier_head_and_batch_stats_not_ported():
         assert tuple(head(torch.zeros((1, size, size, 3))).shape) == (1, 4096)
     assert not isinstance(VGG11Encoder(include_head=False), type(head))
     for name in ("attention", "baseline", "bert"):
-        with pytest.raises(NotImplementedError):
-            build_model(name, 12, 3, vgg_trainable=True, device="cpu")
+        model, _ = build_model(name, 12, 3, vgg_trainable=True, device="cpu")
+        assert model.vgg_trainable and all(p.requires_grad for p in model.parameters())
     s2d, _ = build_model("baseline", 12, 3, s2d_first=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="s2d_first"):
-        s2d.frozen_features(torch.zeros((1, 32, 32, 3)))
+    assert s2d.vgg.s2d_first and not s2d.vgg.conv0_pallas
+    assert tuple(s2d.frozen_features(torch.zeros((1, 32, 32, 3))).shape) == (1, 4096)

@@ -13,7 +13,10 @@ build the same stage set, hand-offs and stem in both packages. Two changes:
 
 All three families are ported: ``attention`` (448²), ``baseline`` and
 ``bert`` (224²); ``bert``'s position table holds
-``max(64, max_seq_length)`` positions, as vqa_tpu sizes it.
+``max(64, max_seq_length)`` positions, as vqa_tpu sizes it. A trainable VGG
+recomputes its conv stack in backward (``remat``) in the attention and
+baseline models; ``bert`` gets neither ``remat`` nor ``s2d_first``, as
+vqa_tpu's ``build_model`` passes neither to it (config.py:191-200).
 """
 
 from __future__ import annotations
@@ -97,6 +100,7 @@ def build_model(model_name: str, vocab_size: int, num_classes: int, *,
     device = torch.device(device)
     cfg = MODEL_CONFIGS[model_name]
     dtype = compute_dtype_for_opt_lvl(opt_lvl)
+    remat = vgg_trainable
     if conv0_pallas is None:
         conv0_pallas = not vgg_trainable
     conv0_pallas = conv0_pallas and not s2d_first and not vgg_trainable
@@ -128,8 +132,8 @@ def build_model(model_name: str, vocab_size: int, num_classes: int, *,
                       int8_handoff=int8_handoff, dtype=dtype, generator=generator)
     if model_name == "baseline":
         from .models.baseline import VQABaselineNet
-        model = VQABaselineNet(vocab_size=vocab_size, K=num_classes, **vgg_kwargs,
-                               **cfg.question_params)
+        model = VQABaselineNet(vocab_size=vocab_size, K=num_classes, remat=remat,
+                               **vgg_kwargs, **cfg.question_params)
     elif model_name == "attention":
         from .models.coattention import HierarchicalCoAttentionNet
         if use_pallas:
@@ -138,13 +142,13 @@ def build_model(model_name: str, vocab_size: int, num_classes: int, *,
                 "package (PARITY.md M8 criterion; "
                 "tools/retired/coattention_kernel.py) and has no port")
         model = HierarchicalCoAttentionNet(
-            vocab_size=vocab_size, K=num_classes, mlp_dim=cfg.mlp_dim, **vgg_kwargs,
-            **cfg.question_params)
+            vocab_size=vocab_size, K=num_classes, mlp_dim=cfg.mlp_dim, remat=remat,
+            **vgg_kwargs, **cfg.question_params)
     elif model_name == "bert":
         from .models.bert import VQABertNet
         model = VQABertNet(vocab_size=vocab_size, K=num_classes,
-                           max_len=max(64, max_seq_length or 0), **vgg_kwargs,
-                           **cfg.question_params)
+                           max_len=max(64, max_seq_length or 0),
+                           **{**vgg_kwargs, "s2d_first": False}, **cfg.question_params)
     else:
         raise KeyError(model_name)
     return model.to(device), cfg

@@ -17,13 +17,19 @@ Routes: at the default ``--opt_lvl 1`` on the card the int8 backbone
 auto-enables and calibrates static scales over ``--int8_calib`` train
 batches (reusing the run's ``int8_calib.json``); conv0-7 then run kernels A
 and B. With ``--int8_backbone false`` (or ``--opt_lvl 0``) conv0 runs kernel
-C and conv1-7 ``F.conv2d``.
+C and conv1-7 ``F.conv2d``. ``--vgg_train true`` trains the VGG (batch-stats
+BatchNorm, the conv stack recomputed in backward, Adam over every
+parameter; cuDNN convs, no kernel; ``--int8_backbone true`` then fails).
+``--bn_mode batch`` trains a frozen VGG with batch statistics, the
+reference's quirk: train steps bypass the int8 stages, while calibration and
+evaluation keep the running stats. ``--grad_accum N`` accumulates N
+microbatches a step; ``--profile_steps N`` writes a ``torch.profiler``
+trace of N steps into the run directory.
 
 Not ported yet, each raising with its ROADMAP.md queue item:
 ``--num_devices > 1``, ``--model_parallel``, ``--fsdp``, ``--seq_parallel``,
-``--force_mesh``, ``--cache_features``, ``--ckpt_backend orbax``,
-``--profile_steps``, ``--vgg_train true``, ``--bn_mode batch``,
-``--grad_accum > 1`` and the native decoders.
+``--force_mesh``, ``--ckpt_backend orbax``, ``--cache_features`` and the
+native decoders; export is not ported either.
 ``--gpu_id`` is accepted and ignored, as in vqa_tpu.
 """
 
@@ -45,7 +51,7 @@ from .models.vgg import VGG11HeadEncoder
 from .train.checkpoint import (AsyncCheckpointer, latest_checkpoint, load_any,
                                load_params_only)
 from .train.logging import ETAEstimator, make_summary_writer, print_and_log, setup_logs_file
-from .train.profiling import SyncedRateTracker
+from .train.profiling import ProfileWindow, SyncedRateTracker
 from .train.state import create_train_state
 from .train.steps import compute_validation_metrics, make_eval_step, make_train_step
 from .vocab import Vocab
@@ -78,7 +84,8 @@ def build_parser() -> argparse.ArgumentParser:
     # model (main.py:65-67)
     add("--model_ckpt", type=str, help="resume / evaluate: model_<step>.ckpt, 'latest' or a .pth")
     add("--vgg_wts_path", type=str, help="torchvision VGG-11-bn weights (.pth)")
-    add("--vgg_train", type=str2bool, default="false", help="train the VGG (not ported yet)")
+    add("--vgg_train", type=str2bool, default="false",
+        help="train the VGG (batch-stats BatchNorm, no int8)")
     # device (main.py:72-73)
     add("--gpu_id", type=int, default=0, help="accepted for script compatibility, ignored")
     add("--opt_lvl", type=int, default=1, choices=[0, 1, 2, 3],
@@ -96,7 +103,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--fsdp", type=str2bool, default="false", help="not ported yet")
     add("--ckpt_backend", type=str, default="flax", choices=["flax", "orbax"],
         help="'flax' = one model_<step>.ckpt file (here a torch.save); orbax: not ported yet")
-    add("--grad_accum", type=int, default=1, help="microbatches per step (not ported yet)")
+    add("--grad_accum", type=int, default=1,
+        help="microbatches per step, one optimizer update (must divide --batch_size)")
     add("--seq_parallel", type=str2bool, default="false", help="not ported yet")
     add("--preempt_save", type=str2bool, default="true",
         help="on SIGTERM, save a checkpoint at the next step boundary and exit")
@@ -111,10 +119,12 @@ def build_parser() -> argparse.ArgumentParser:
     add("--test_out", type=str, help="test mode: write predictions here")
     add("--test_out_format", type=str, default="plain", choices=["plain", "vqa"],
         help="plain = one answer per line; vqa = [{question_id, answer}] JSON")
-    add("--profile_steps", type=int, default=0, help="not ported yet")
+    add("--profile_steps", type=int, default=0,
+        help="write a torch.profiler trace of N train steps into the run dir")
     add("--bn_mode", type=str, default="auto", choices=["auto", "batch", "running"],
-        help="frozen-VGG BatchNorm in training: auto/running = running stats "
-             "(batch: not ported yet)")
+        help="BatchNorm in training: auto = batch stats iff --vgg_train; batch = "
+             "batch stats even when frozen (the reference's quirk); running = "
+             "always running stats")
     add("--prefetch_batches", type=int, default=2,
         help="device batches enqueued ahead of the train step (<=1 disables)")
     add("--cache_features", type=str2bool, default="false", help="not ported yet")
@@ -143,11 +153,7 @@ def _reject_unported(args) -> None:
         (args.seq_parallel, "--seq_parallel", 8),
         (args.force_mesh, "--force_mesh", 8),
         (args.cache_features, "--cache_features", 6),
-        (args.ckpt_backend == "orbax", "--ckpt_backend orbax", 4),
-        (args.profile_steps > 0, "--profile_steps", 4),
-        (args.grad_accum > 1, "--grad_accum > 1", 4),
-        (args.vgg_train, "--vgg_train true", 2),
-        (args.bn_mode == "batch", "--bn_mode batch", 2),
+        (args.ckpt_backend == "orbax", "--ckpt_backend orbax", 8),
         (args.decode_backend in ("native", "native_mp"),
          f"--decode_backend {args.decode_backend}", 3),
     ]
@@ -298,6 +304,9 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
     train_loader = make_loader(train_dataset)
     if val_dataset is not None:
         val_loader = make_loader(val_dataset)
+    if args.grad_accum > 1 and args.batch_size % args.grad_accum:
+        raise SystemExit(f"--grad_accum {args.grad_accum} must divide "
+                         f"--batch_size {args.batch_size}")
     train_step = make_train_step(vgg_trainable=args.vgg_train,
                                  bn_batch_stats={"auto": None, "batch": True,
                                                  "running": False}[args.bn_mode],
@@ -312,6 +321,7 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
     eta = ETAEstimator(steps_per_epoch, args.num_epochs, start_step=curr_step)
     timer = SyncedRateTracker(args.batch_size)
     checkpointer = AsyncCheckpointer()
+    profile = ProfileWindow(log_dir, args.profile_steps)
     guard = None
     if args.preempt_save:
         from .train.preemption import PreemptionGuard
@@ -356,6 +366,8 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
             batches = device_prefetch(train_loader, prepare_batch,
                                       depth=args.prefetch_batches)
             for dbatch in batches:
+                if profile.before_step(curr_step):
+                    print_and_log(f"profiler trace written to {log_dir}", log_file)
                 metrics = train_step(state, dbatch)
                 losses.append(metrics["loss"])
 
@@ -415,6 +427,8 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
         else:
             raise
     finally:
+        if profile.close():
+            print_and_log(f"profiler trace written to {log_dir}", log_file)
         checkpointer.wait()
         if guard is not None:
             guard.uninstall()

@@ -1,9 +1,15 @@
 """What the three model families share.
 
-Each model is a frozen VGG tower followed by a trained head. The forward is
-split in two so the profile script (and any caller) can run either half:
-:meth:`VQANet.frozen_features` (the VGG, without autograd) and
-:meth:`VQANet.head` (everything that trains). The int8 fields of the VGG's
+Each model is a VGG tower followed by a trained head. The forward is split
+in two so the profile script (and any caller) can run either half:
+:meth:`VQANet.features` (the tower) and :meth:`VQANet.head` (the rest). The
+frozen running-stats tower is :meth:`VQANet.frozen_features` (the VGG,
+without autograd), the path of serving, evaluation and default training.
+:meth:`VQANet.tower` is the tower with autograd, which ``features`` takes
+when the VGG trains (``vgg_trainable``) or BatchNorm uses batch statistics
+(``use_running_stats=False``); a frozen VGG runs it without autograd, the
+counterpart of vqa_tpu's ``stop_gradient`` on the tower output
+(baseline.py:67-70, coattention.py:98-100). The int8 fields of the VGG's
 conv stack and the precision policy are exposed the same way for every
 family.
 """
@@ -21,6 +27,8 @@ class VQANet(nn.Module):
     """Base of the three models: ``dtype`` and the conv stack ``vgg``."""
 
     dtype: torch.dtype
+    vgg_trainable: bool = False
+    remat: bool = False          # recompute the conv stack in backward
 
     @property
     def vgg(self) -> VGGFeatures:
@@ -45,12 +53,26 @@ class VQANet(nn.Module):
         """The frozen tower's output for a preprocessed image batch."""
         raise NotImplementedError
 
+    def tower(self, x_img: torch.Tensor, batch_stats: bool) -> torch.Tensor:
+        """The tower's output under autograd (``VGGFeatures.train_forward``)."""
+        raise NotImplementedError
+
+    def features(self, x_img: torch.Tensor, use_running_stats: bool = True) -> torch.Tensor:
+        """The tower's output as a train or eval step takes it: the frozen
+        tower, or :meth:`tower` when the VGG trains or BatchNorm uses batch
+        statistics (with autograd only when the VGG trains)."""
+        if use_running_stats and not self.vgg_trainable:
+            return self.frozen_features(x_img)
+        with torch.set_grad_enabled(self.vgg_trainable and torch.is_grad_enabled()):
+            return self.tower(x_img, batch_stats=not use_running_stats)
+
     def head(self, feats: torch.Tensor, x_ques: torch.Tensor,
              x_ques_lens: torch.Tensor) -> torch.Tensor:
-        """Logits [B, K] from the frozen features and the question."""
+        """Logits [B, K] from the tower's features and the question."""
         raise NotImplementedError
 
     def forward(self, x_img: torch.Tensor, x_ques: torch.Tensor,
-                x_ques_lens: torch.Tensor) -> torch.Tensor:
-        """x_img [B, H, W, 3] normalized, ids [B, L], lengths [B] -> logits [B, K]."""
-        return self.head(self.frozen_features(x_img), x_ques, x_ques_lens)
+                x_ques_lens: torch.Tensor, use_running_stats: bool = True) -> torch.Tensor:
+        """x_img [B, H, W, 3] normalized, ids [B, L], lengths [B] -> logits [B, K].
+        ``use_running_stats=False``: batch-stats BatchNorm (training only)."""
+        return self.head(self.features(x_img, use_running_stats), x_ques, x_ques_lens)

@@ -5,7 +5,7 @@ Module and parameter names follow the reference state dict that
 ``vqa_tpu.models.convert.baseline_to_torch`` emits (convert.py:277-296), so
 a reference ``.pth`` loads with ``load_state_dict(strict=True)``:
 
-- image: the VGG with its classifier head (frozen) -> 4096, an fp32 L2
+- image: the VGG with its classifier head -> 4096, an fp32 L2
   normalize with a 1e-12 floor, FC-1024, tanh (``image_encoder.
   vgg11_encoder.{conv_layers,fc_layers}``, ``image_encoder.embedding_layer.0``);
 - question: Embedding(300) (row 0 not masked), tanh, GRU(1024) last valid
@@ -14,8 +14,11 @@ a reference ``.pth`` loads with ``load_state_dict(strict=True)``:
 - fusion: element-wise product, FC-1000, Dropout(0.5) *before* tanh, FC-K
   (``mlp.0``, ``fc_final``).
 
-Dropout is live in train mode at three places: the VGG head's two (the head
-is frozen, but the reference keeps it in train mode) and the fusion's. The
+The VGG and its classifier head are frozen unless ``vgg_trainable``
+(``--vgg_train true``), which trains both and recomputes the conv stack in
+backward (``remat``). Dropout is live in train mode at three places: the
+VGG head's two (a frozen head too: the reference keeps it in train mode)
+and the fusion's. The
 masks come from the generator that ``layers.set_dropout_generator`` gives the
 model (the training state's). Precision as in the co-attention model: the
 trained part runs under bf16 autocast at ``--opt_lvl >= 1``.
@@ -35,12 +38,12 @@ class ImageBaselineEncoder(nn.Module):
     """224x224 image -> 1024-d embedding (reference model.py:41-105)."""
 
     def __init__(self, *, dtype: torch.dtype = torch.float32, generator=None,
-                 **vgg_kwargs):
+                 vgg_trainable: bool = False, **vgg_kwargs):
         super().__init__()
         self.dtype = dtype
         self.vgg11_encoder = VGG11HeadEncoder(dtype=dtype, generator=generator, **vgg_kwargs)
         self.embedding_layer = nn.Sequential(Linear(4096, 1024, generator), nn.Tanh())
-        self.vgg11_encoder.requires_grad_(False)
+        self.vgg11_encoder.requires_grad_(vgg_trainable)
 
     def embed(self, feats: torch.Tensor) -> torch.Tensor:
         """The trained part: the 4096-d VGG output -> [B, 1024]."""
@@ -73,17 +76,17 @@ class VQABaselineNet(VQANet):
                  s2d_first: bool = False, conv0_pallas: bool = False,
                  int8_stages: tuple = (), int8_amax: tuple = (),
                  hpack_pool: bool = False, fused_stem: bool = False,
-                 int8_handoff: bool = False, dtype: torch.dtype = torch.float32,
+                 int8_handoff: bool = False, remat: bool = False,
+                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None, question_encoder=None):
         super().__init__()
-        if vgg_trainable:
-            raise NotImplementedError("a trainable VGG (batch-stats BatchNorm) is not "
-                                      "ported yet (ROADMAP.md queue 1 item 2)")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.dtype = dtype
+        self.vgg_trainable = vgg_trainable
+        self.remat = remat
         self.image_encoder = ImageBaselineEncoder(
-            dtype=dtype, generator=generator, s2d_first=s2d_first,
+            dtype=dtype, generator=generator, vgg_trainable=vgg_trainable, s2d_first=s2d_first,
             conv0_pallas=conv0_pallas, int8_stages=int8_stages, int8_amax=int8_amax,
             hpack_pool=hpack_pool, fused_stem=fused_stem, int8_handoff=int8_handoff)
         self.question_encoder = question_encoder if question_encoder is not None else \
@@ -98,6 +101,10 @@ class VQABaselineNet(VQANet):
     def frozen_features(self, x_img: torch.Tensor) -> torch.Tensor:
         """The VGG with its classifier head: [B, 4096], no autograd."""
         return self.image_encoder.vgg11_encoder(x_img)
+
+    def tower(self, x_img: torch.Tensor, batch_stats: bool) -> torch.Tensor:
+        return self.image_encoder.vgg11_encoder.train_forward(
+            x_img, batch_stats=batch_stats, remat=self.remat)
 
     def head(self, feats, x_ques, x_ques_lens):
         with self._autocast(feats.device):

@@ -16,11 +16,13 @@ the JAX package casts them; both softmaxes of the co-attention and the final
 softmax run in fp32.
 
 Training: the question tower, co-attention and head are trainable (fp32
-parameters). The VGG is frozen: it runs under ``no_grad`` and its
-parameters have ``requires_grad=False``, the counterpart of vqa_tpu's
-``stop_gradient`` on the tower output (coattention.py:98-100) and its
-``set_to_zero`` optimizer label (train/state.py:48-55). Inference callers
-wrap the forward in ``torch.no_grad()``.
+parameters). The VGG is frozen unless ``vgg_trainable`` (``--vgg_train
+true``, which also recomputes the conv stack in backward: ``remat``):
+frozen, it runs without autograd (``models.base``) and its parameters have
+``requires_grad=False``, the counterpart of vqa_tpu's ``stop_gradient`` on
+the tower output (coattention.py:98-100) and its ``set_to_zero`` optimizer
+label (train/state.py:48-55). Inference callers wrap the forward in
+``torch.no_grad()``.
 """
 
 from __future__ import annotations
@@ -158,15 +160,14 @@ class HierarchicalCoAttentionNet(VQANet):
                  conv0_pallas: bool = False, int8_stages: tuple = (),
                  int8_amax: tuple = (), hpack_pool: bool = False,
                  fused_stem: bool = False, int8_handoff: bool = False,
-                 dtype: torch.dtype = torch.float32,
+                 remat: bool = False, dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if vgg_trainable:
-            raise NotImplementedError("a trainable VGG (batch-stats BatchNorm) is not "
-                                      "ported yet (ROADMAP.md queue 1 item 2)")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.dtype = dtype
+        self.vgg_trainable = vgg_trainable
+        self.remat = remat
         self.question_encoder = QuestionCoAttentionEncoder(
             vocab_size, word_emb_dim, hidden_dim, dtype, generator)
         self.image_encoder = ImageCoAttentionEncoder(
@@ -176,7 +177,7 @@ class HierarchicalCoAttentionNet(VQANet):
             int8_handoff=int8_handoff)
         self.co_attention = ParallelCoAttention(hidden_dim, generator)
         self.mlp_classify = MLPClassifier(hidden_dim, mlp_dim, K, generator)
-        self.image_encoder.requires_grad_(False)
+        self.image_encoder.requires_grad_(vgg_trainable)
 
     @property
     def vgg(self) -> VGGFeatures:
@@ -186,6 +187,11 @@ class HierarchicalCoAttentionNet(VQANet):
         """[B, 196, 512] spatial features; the VGG casts explicitly (its int8
         ops must not be autocast) and runs without autograd (frozen)."""
         return self.image_encoder(x_img)
+
+    def tower(self, x_img: torch.Tensor, batch_stats: bool) -> torch.Tensor:
+        x = self.vgg.train_forward(x_img, batch_stats=batch_stats, remat=self.remat)
+        b, h, w, c = x.shape
+        return x.reshape(b, h * w, c)
 
     def head(self, feats, x_ques, x_ques_lens):
         with self._autocast(feats.device):

@@ -24,10 +24,30 @@ config down the same branches:
   running per-input-channel max|input| in f32 and turns the fused stem and
   the hand-offs off, as vqa_tpu's mutable ``quant_stats`` collection does.
 
+- with ``s2d_first`` (and no fused conv0), conv0 + pool runs as one conv
+  over the 2x2 space-to-depth input with the phase-rewritten kernel
+  (:func:`_space_to_depth_kernel`), then bias, ReLU and the max over the four
+  pool phases (vgg.py:281-287).
+
+:meth:`VGGFeatures.train_forward` is the tower with autograd, for a
+trainable VGG or batch-stats BatchNorm (``--vgg_train true``, ``--bn_mode
+batch``; vgg.py:397-424): the conv in the compute dtype without a fused
+bias, the bias added in the compute dtype, f32 mean and biased variance
+over every axis but channels (and the pool phases under ``s2d_first``),
+``rsqrt(var + 1e-5)``, the affine, the cast back, then ReLU. No int8 stage
+and no kernel runs there. In training mode the running stats take
+``0.9 * running + 0.1 * batch`` with the same biased variance, in place in
+the ``nn.BatchNorm2d`` buffers (``num_batches_tracked`` stays as loaded).
+With ``remat`` the conv stack is recomputed in backward
+(``torch.utils.checkpoint``); the checkpointed function returns the batch
+statistics and the update is applied outside it, so the recomputation does
+not apply it a second time (flax's ``nn.remat`` drops the recomputed
+update). Without batch statistics it is the running-stats forward above,
+with autograd (a trainable VGG under ``--bn_mode running``).
+
 The baseline and bert models add the classifier head
 (:class:`VGG11HeadEncoder`: adaptive average pool to 7x7, then torchvision's
-``classifier[:-1]``, vgg.py:497-568). Not ported yet: batch-stats mode
-(``--bn_mode batch`` / a trainable VGG) and ``s2d_first``.
+``classifier[:-1]``, vgg.py:497-568).
 """
 
 from __future__ import annotations
@@ -37,6 +57,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.conv_hpack import conv_bn_relu_pool, int8_conv3x3
 from ..ops.conv_stage1 import conv0_bn_relu_pool
@@ -53,6 +74,44 @@ def _maxpool2x2(x: torch.Tensor) -> torch.Tensor:
     b, h, w, c = x.shape
     x = x[:, :h // 2 * 2, :w // 2 * 2]
     return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+def _conv3x3(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """NHWC x HWIO -> NHWC 3x3 stride-1 SAME conv, no bias, in x's dtype. The
+    NCHW views keep x's channels-last strides, which cuDNN takes as they are."""
+    return F.conv2d(x.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                    padding=1).permute(0, 2, 3, 1)
+
+
+def _space_to_depth_kernel(w: torch.Tensor) -> torch.Tensor:
+    """A 3x3 kernel [3, 3, C, O] rewritten for a 2x2 space-to-depth input:
+    [3, 3, 4C, 4O], output group P = 2p + q holding pool phase (p, q), the
+    conv at position (2i + p, 2j + q) (vgg.py:71-91). Differentiable."""
+    c, o = w.shape[2], w.shape[3]
+    w4 = w.new_zeros((3, 3, 4, c, 4, o))
+    for p in range(2):
+        for q in range(2):
+            for a in range(3):           # tap offsets -1..1 as 0..2
+                for b in range(3):
+                    ta, tb = p + a - 1, q + b - 1
+                    r, s = ta % 2, tb % 2
+                    w4[(ta - r) // 2 + 1, (tb - s) // 2 + 1, r * 2 + s, :, p * 2 + q] = w[a, b]
+    return w4.reshape(3, 3, 4 * c, 4 * o)
+
+
+def _space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
+    """NHWC [B, H, W, C] -> [B, H/2, W/2, 4C]; channel group (r * 2 + s) * C + c
+    (vgg.py:94-99)."""
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // 2, w // 2, 4 * c)
+
+
+def _s2d_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """conv0 on the space-to-depth input: [B, H/2, W/2, 4, O] (phase axis 3)."""
+    y = _conv3x3(_space_to_depth_2x2(x), _space_to_depth_kernel(kernel))
+    b, h, w, _ = y.shape
+    return y.reshape(b, h, w, 4, kernel.shape[3])
 
 
 class VGGFeatures(nn.Sequential):
@@ -126,6 +185,72 @@ class VGGFeatures(nn.Sequential):
         ``quant_stats``: a dict to record each int8 stage's per-input-channel
         amax into (the calibration pass); None for a normal forward.
         """
+        return self._running_stats_forward(x, quant_stats)
+
+    def train_forward(self, x: torch.Tensor, *, batch_stats: bool,
+                      remat: bool = False) -> torch.Tensor:
+        """The tower under autograd (when grad mode is on): batch-stats
+        BatchNorm, with the running stats updated once in training mode, or
+        the running-stats forward. ``remat``: recompute the stack in
+        backward instead of keeping its activations."""
+        fn = self._batch_stats_forward if batch_stats else self._running_stats_forward
+        if remat and torch.is_grad_enabled():
+            out = checkpoint(fn, x, use_reentrant=False)
+        else:
+            out = fn(x)
+        if not batch_stats:
+            return out
+        y, stats = out
+        if self.training:
+            self._update_running_stats(stats)
+        return y
+
+    @torch.no_grad()
+    def _update_running_stats(self, stats) -> None:
+        """``running = 0.9 * running + 0.1 * batch`` in f32 (vgg.py:417-418)."""
+        for (_, bn), (mean, var) in zip(self._conv_bn, stats):
+            bn.running_mean.copy_(0.9 * bn.running_mean + 0.1 * mean)
+            bn.running_var.copy_(0.9 * bn.running_var + 0.1 * var)
+
+    def _batch_stats_forward(self, x: torch.Tensor):
+        """Batch-stats mode (vgg.py:397-424): -> (features, [(mean, var)]
+        per conv), the statistics f32 with the biased variance. Pure: the
+        caller applies the running update."""
+        x = x.to(self.dtype)
+        cfg = VGG11_CFG
+        stats = []
+        conv_idx = idx = 0
+        while idx < len(cfg):
+            v = cfg[idx]
+            if v == "M":
+                x = _maxpool2x2(x)
+                idx += 1
+                continue
+            conv, bn = self._conv_bn[conv_idx]
+            kernel = conv.weight.permute(2, 3, 1, 0).to(self.dtype)
+            bias = conv.bias.to(self.dtype)
+            pool_next = idx + 1 < len(cfg) and cfg[idx + 1] == "M"
+            phase_max = (conv_idx == 0 and pool_next and self.s2d_first
+                         and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)
+            if phase_max:
+                y = _s2d_conv(x, kernel) + bias
+                idx += 2
+            else:
+                y = _conv3x3(x, kernel) + bias
+                idx += 1
+            yf = y.float()
+            dims = tuple(range(yf.dim() - 1))
+            mean = yf.mean(dims)
+            var = yf.var(dims, correction=0)
+            stats.append((mean, var))
+            yn = (yf - mean) * torch.rsqrt(var + 1e-5) * bn.weight + bn.bias
+            x = torch.relu(yn.to(self.dtype))
+            if phase_max:
+                x = x.amax(dim=3)
+            conv_idx += 1
+        return x, stats
+
+    def _running_stats_forward(self, x: torch.Tensor, quant_stats: dict | None = None):
         recording = quant_stats is not None
         x = x.to(self.dtype)
         cfg = VGG11_CFG
@@ -160,7 +285,9 @@ class VGGFeatures(nn.Sequential):
                                        s_x=s_x_static)
                 idx += 2
             elif first_stage_2x2 and self.s2d_first:
-                raise NotImplementedError("s2d_first (an XLA A/B variant) is not ported")
+                y = _s2d_conv(x, (kernel * s).to(self.dtype)) + b32.to(self.dtype)
+                x = torch.relu(y).amax(dim=3)
+                idx += 2
             elif (int8 and self.hpack_pool and pool_next and x.shape[-1] <= 64
                   and x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0):
                 s_next = self._handoff_scales(conv_idx + 1, v, recording)
@@ -263,9 +390,12 @@ class VGG11HeadEncoder(nn.Module):
     baseline and bert image tower). Keys as the reference's:
     ``conv_layers.{i}.*`` (the conv stack) and ``fc_layers.{1,4}.*``.
 
-    Frozen: it runs without autograd, but the head's two Dropouts follow the
-    module's train/eval mode, as the reference keeps the frozen head in
-    train mode and vqa_tpu stops the gradient after it (baseline.py:69-70).
+    ``forward`` is the frozen tower: it runs without autograd, but the
+    head's two Dropouts follow the module's train/eval mode, as the reference
+    keeps the frozen head in train mode and vqa_tpu stops the gradient after
+    it (baseline.py:69-70). ``train_forward`` runs the conv stack's
+    :meth:`VGGFeatures.train_forward` and the head under autograd (a
+    trainable VGG trains both).
     """
 
     def __init__(self, *, dtype: torch.dtype = torch.float32,
@@ -278,7 +408,17 @@ class VGG11HeadEncoder(nn.Module):
     @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, H, W, 3] -> [B, 4096] (f32 under fp32, else autocast's dtype)."""
-        x = adaptive_avg_pool(self.conv_layers(x), (7, 7))
+        return self._head(self.conv_layers(x))
+
+    def train_forward(self, x: torch.Tensor, *, batch_stats: bool,
+                      remat: bool = False) -> torch.Tensor:
+        """The tower under autograd; ``remat`` covers the conv stack only,
+        as vqa_tpu's (vgg.py:551-556)."""
+        return self._head(self.conv_layers.train_forward(x, batch_stats=batch_stats,
+                                                         remat=remat))
+
+    def _head(self, feats: torch.Tensor) -> torch.Tensor:
+        x = adaptive_avg_pool(feats, (7, 7))
         with autocast(self.dtype, x.device.type):
             return self.fc_layers(x.permute(0, 3, 1, 2))
 

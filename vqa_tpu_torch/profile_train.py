@@ -2,21 +2,25 @@
 
     python -m vqa_tpu_torch.profile_train [--model attention|baseline|bert]
         [--steps 6] [--batch_size 32] [--opt_lvl 1|0] [--int8_backbone false|auto]
+        [--vgg_train true|false] [--bn_mode auto|batch|running]
         [--out build/profile_train.json]
 
 Trains one model family at full width (``config.MODEL_CONFIGS``: attention
 at 448², baseline and bert at 224²; K = 1001, vocab 10,000, question length
 23; random weights from seed 0) on synthetic images, at ``--opt_lvl 1``
 (bf16 compute) or ``--opt_lvl 0`` (f32 throughout, kernel C in f32), on the
-float route by default (conv0 = kernel C). Two measurements, each after
-2 warm-up steps:
+float route by default (conv0 = kernel C). ``--vgg_train true`` trains the
+VGG too (batch-stats BatchNorm, the conv stack recomputed in backward,
+cuDNN convs, no kernel); ``--bn_mode`` as in ``vqa_tpu_torch.main``. Two
+measurements, each after 2 warm-up steps:
 
 1. pieces: each part of a step timed alone, with the card synchronized
    before and after it (host clock, median over ``--steps``): host decode of
    one batch (the loader's thread pool, pinning included), H2D copy +
-   preprocess, the frozen tower's forward (``frozen_features``: the VGG,
-   with its classifier head for baseline and bert), the trained head's
-   forward and backward, the Adam step, and the whole train step;
+   preprocess, the tower's forward (``VQANet.features``: the VGG, with its
+   classifier head for baseline and bert; with autograd when it trains),
+   the head's forward and backward, the tower's backward when it trains
+   (the recomputation included), the Adam step, and the whole train step;
 2. the loop: the loader thread, ``device_prefetch`` and ``train_step`` as
    ``vqa_tpu_torch.main`` runs them (no validation), ``--steps`` steps
    timed by the host clock, then ``--steps`` more under ``torch.profiler``:
@@ -92,6 +96,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--opt_lvl", type=int, default=1, choices=[0, 1],
                     help="1: bf16 compute; 0: f32 throughout (kernel C in f32)")
     ap.add_argument("--int8_backbone", default="false", choices=["auto", "false"])
+    ap.add_argument("--vgg_train", default="false", choices=["true", "false"])
+    ap.add_argument("--bn_mode", default="auto", choices=["auto", "batch", "running"])
     ap.add_argument("--num_workers", type=int, default=8)
     ap.add_argument("--image_size", type=int, default=0, help="0 = the model's")
     ap.add_argument("--device", default="cuda", help="'cpu' only to rehearse the script")
@@ -117,7 +123,11 @@ def main(argv=None) -> dict:
     work = os.path.join("build", "profile_train")
     vocab_file, data = _write_data(work, bs * (2 * n + 2) + bs)
     vocab = Vocab.load(vocab_file)
+    vgg_train = args.vgg_train == "true"
+    bn_batch_stats = {"auto": None, "batch": True, "running": False}[args.bn_mode]
+    batch_stats = vgg_train if bn_batch_stats is None else bn_batch_stats
     model, cfg = build_model(args.model, vocab.size, ANSWERS + 1, device=dev, opt_lvl=args.opt_lvl,
+                             vgg_trainable=vgg_train,
                              int8_backbone=None if args.int8_backbone == "auto" else False,
                              max_seq_length=SEQ_LEN, generator=torch.Generator().manual_seed(0))
     size = args.image_size or cfg.image_size
@@ -129,7 +139,7 @@ def main(argv=None) -> dict:
         calibrate_model(args.model, model, preprocess,
                         [loader._make_batch(np.arange(bs))["image"]], log=print)
     state = create_train_state(model, 1e-4)
-    train_step = make_train_step()
+    train_step = make_train_step(vgg_trainable=vgg_train, bn_batch_stats=bn_batch_stats)
 
     def sync():
         if on_card:
@@ -144,24 +154,33 @@ def main(argv=None) -> dict:
 
     # 1. pieces
     pieces = {k: [] for k in ("host_decode", "h2d_preprocess", "vgg_forward",
-                              "head_forward_backward", "adam", "train_step")}
+                              "head_forward_backward", "vgg_backward", "adam", "train_step")}
+    if not vgg_train:
+        del pieces["vgg_backward"]
     model.train()
     for i in range(n + 2):
         idx = np.arange(i * bs, (i + 1) * bs)
         host, t_dec = synced(lambda: loader._make_batch(idx))
         b, t_h2d = synced(lambda: device_batch(host, preprocess, dev))
-        feats, t_vgg = synced(lambda: model.frozen_features(b["image"]))
+        feats, t_vgg = synced(lambda: model.features(b["image"], not batch_stats))
+        # a trainable tower's backward is timed apart: the head stops at a
+        # leaf copy of the features, whose gradient then enters the tower
+        head_in = feats.detach().requires_grad_() if vgg_train else feats
 
         def head():
-            logits = model.head(feats, b["question"], b["ques_len"])
+            logits = model.head(head_in, b["question"], b["ques_len"])
             state.optimizer.zero_grad(set_to_none=True)
             cross_entropy_loss(logits, b["label"]).backward()
 
         _, t_head = synced(head)
+        times = [t_dec, t_h2d, t_vgg, t_head]
+        if vgg_train:
+            times.append(synced(lambda: feats.backward(head_in.grad))[1])
         _, t_adam = synced(state.optimizer.step)
+        del feats, head_in
         _, t_step = synced(lambda: train_step(state, b))
         if i >= 2:
-            for k, v in zip(pieces, (t_dec, t_h2d, t_vgg, t_head, t_adam, t_step)):
+            for k, v in zip(pieces, times + [t_adam, t_step]):
                 pieces[k].append(v)
     medians = {k: statistics.median(v) for k, v in pieces.items()}
     for k, v in medians.items():
@@ -201,8 +220,10 @@ def main(argv=None) -> dict:
                          timeout=60).stdout.strip() if on_card else ""
     summary = {
         "card": card, "clocks_power_after": smi, "model": args.model, "opt_lvl": args.opt_lvl,
-        "image_size": size, "route": "int8" if model.int8_stages
-        else "float (kernel C)", "batch": bs, "steps": n, "pieces_median_ms": medians,
+        "image_size": size, "vgg_train": vgg_train, "bn_batch_stats": batch_stats,
+        "route": "int8" if model.int8_stages else "float (kernel C)"
+        if model.vgg.conv0_pallas else "cuDNN convs (no kernel)",
+        "batch": bs, "steps": n, "pieces_median_ms": medians,
         "loop_ms_per_step": wall_ms / n, "loop_qa_per_s": bs * n / (wall_ms / 1e3),
         "profiled_ms_per_step": prof_wall_ms / n,
         "device_busy_ms_per_step": busy_ms / n,

@@ -7,10 +7,10 @@ the Adam optimizer, the step counter and an explicit ``torch.Generator``,
 all of which ``train.checkpoint`` saves and restores.
 
 Adam has the reference's torch defaults (``torch.optim.Adam(lr)``: b1 0.9,
-b2 0.999, eps 1e-8) and covers the parameters that require a gradient
-only: the frozen VGG's (and its classifier head's) are left out, the
-counterpart of vqa_tpu's ``set_to_zero`` label for ``*/vgg11_encoder``
-(state.py:48-55).
+b2 0.999, eps 1e-8) and covers the parameters that require a gradient:
+all of them when the VGG trains (``--vgg_train true``), else all but the
+frozen VGG's (and its classifier head's), the counterpart of vqa_tpu's
+``set_to_zero`` label for ``*/vgg11_encoder`` (state.py:48-55).
 
 The generator lives on the model's device and is the one every dropout of
 the model draws its masks from (``models.layers.set_dropout_generator``):

@@ -3,14 +3,24 @@
 One train step is forward (under the model's precision policy: bf16
 autocast for the head at ``--opt_lvl >= 1``), mean softmax cross-entropy on
 fp32 logits (``nn.CrossEntropyLoss``, reference main.py:179,214), backward
-and one Adam step on the trainable parameters. The frozen VGG runs in
-running-stats mode and without autograd (models/coattention.py). The step
-puts the model in train mode, so the baseline and bert models' dropouts
-(the VGG head's included) are live; callers evaluate in eval mode.
+and one Adam step on the trainable parameters. The step puts the model in
+train mode, so the baseline and bert models' dropouts (the VGG head's
+included) are live; callers evaluate in eval mode, where BatchNorm always
+uses the running stats.
 
-Not ported yet: ``bn_batch_stats=True`` (the reference's batch-stats quirk,
-``--bn_mode batch``), a trainable VGG and ``grad_accum > 1``; each raises.
-The feature cache (vqa_tpu's ``image_is_features``) is not ported either.
+BatchNorm in training follows vqa_tpu's policy (steps.py:62): batch
+statistics when the VGG trains, running stats when it is frozen, unless
+``bn_batch_stats`` says otherwise (``--bn_mode batch`` is the reference's
+batch-stats quirk on a frozen VGG). Batch statistics bypass the int8 stages
+and every kernel (``models.vgg``).
+
+``grad_accum > 1`` splits the batch into equal microbatches, each a forward
+and backward with its own dropout masks from the state's generator; the
+gradients are summed and divided by ``grad_accum``, loss and accuracy are
+the means of the microbatch means, and one Adam step follows (steps.py:
+95-124). It needs running-stats BatchNorm.
+
+Not ported: the feature cache (vqa_tpu's ``image_is_features``).
 """
 
 from __future__ import annotations
@@ -31,23 +41,42 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
     """Build ``train_step(state, batch) -> {"loss", "accuracy"}`` (0-d
     device tensors, not synced). ``batch`` holds device tensors ``image``
     (preprocessed), ``question``, ``ques_len`` and ``label`` (int64)."""
-    if vgg_trainable or bn_batch_stats:
-        raise NotImplementedError("batch-stats BatchNorm and a trainable VGG are not "
-                                  "ported yet (ROADMAP.md queue 1 item 2)")
-    if grad_accum > 1:
-        raise NotImplementedError("grad_accum > 1 is not ported yet "
-                                  "(ROADMAP.md queue 1 item 4)")
+    use_batch_stats_bn = vgg_trainable if bn_batch_stats is None else bn_batch_stats
+    if grad_accum > 1 and use_batch_stats_bn:
+        raise ValueError("grad_accum requires running-stats BN "
+                         "(per-microbatch stat updates change semantics)")
+
+    def forward_backward(model, batch):
+        logits = model(batch["image"], batch["question"], batch["ques_len"],
+                       use_running_stats=not use_batch_stats_bn)
+        loss = cross_entropy_loss(logits, batch["label"])
+        loss.backward()
+        accuracy = (logits.detach().argmax(dim=-1) == batch["label"]).float().mean()
+        return loss.detach(), accuracy
 
     def train_step(state: TrainState, batch: dict) -> dict:
         state.model.train()
-        logits = state.model(batch["image"], batch["question"], batch["ques_len"])
-        loss = cross_entropy_loss(logits, batch["label"])
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        if grad_accum == 1:
+            loss, accuracy = forward_backward(state.model, batch)
+        else:
+            n = batch["label"].shape[0]
+            if n % grad_accum:
+                raise ValueError(f"grad_accum={grad_accum} must divide the batch size {n}")
+            m = n // grad_accum
+            loss = accuracy = 0.0
+            for i in range(grad_accum):
+                mb_loss, mb_acc = forward_backward(
+                    state.model, {k: v[i * m:(i + 1) * m] for k, v in batch.items()})
+                loss, accuracy = loss + mb_loss, accuracy + mb_acc
+            for group in state.optimizer.param_groups:
+                for p in group["params"]:
+                    if p.grad is not None:
+                        p.grad.div_(grad_accum)
+            loss, accuracy = loss / grad_accum, accuracy / grad_accum
         state.optimizer.step()
         state.step += 1
-        accuracy = (logits.detach().argmax(dim=-1) == batch["label"]).float().mean()
-        return {"loss": loss.detach(), "accuracy": accuracy}
+        return {"loss": loss, "accuracy": accuracy}
 
     return train_step
 
