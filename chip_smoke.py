@@ -72,6 +72,35 @@ without CUDA it exits non-zero before printing any result):
    model with ``--grad_accum 2`` on the int8 route: kernel A once per
    calibration batch, microbatch and eval batch, kernel B 7 times as often.
 
+8. ETL phase: a synthetic VQA-v2 annotations/questions JSON pair with COCO
+   image ids (96 train images and 32 val images, two questions each: 192
+   and 64 lines) through ``python -m vqa_tpu_torch.prepare_data
+   --balanced_real_images`` (``-s train`` with ``-v``, then ``-s val``), as
+   a user runs it; then one 640x480 JPEG (quality 90, seeded smooth
+   gradient plus noise) per image under the COCO name the ETL wrote;
+9. decode phase at 448² and 224² over those JPEGs: ``pil`` on 8 threads,
+   ``native`` on 8 threads and ``native_mp`` on 8 worker processes, with
+   images/s and ``os.cpu_count()``; ``native_mp`` equal to ``native`` byte
+   for byte, ``native`` within a mean absolute difference of 12 of ``pil``.
+   The native decoder needs libjpeg's headers: the script checks for them
+   first (``<cstdio>`` then ``<jpeglib.h>`` through ``g++ -fsyntax-only``) and,
+   where they are missing, says so on a line of its own and runs ``pil``
+   alone, here and in the cache phases;
+10. cache phases, on the ETL's files and JPEGs at batch 32: the attention
+   model at 448² on the int8 route (``--opt_lvl 1 --int8_calib 1``): an
+   uncached run (whose ``auto`` decode engine resolves to ``native_mp``, or
+   ``pil`` without the native decoder), a ``--cache_features true`` run
+   that builds the train and val caches, and the same again, which reuses
+   them; kernel A launched exactly once per calibration batch and build
+   batch and kernel B 7 times as often, none from train steps or eval
+   batches; the baseline at 224² on the float route (``--opt_lvl 0``,
+   dropout live) uncached, then cached: kernel C once per build batch, A
+   and B never, the classifier head's dropouts run in every cached step.
+   The cached losses must equal the uncached ones within RESUME_RTOL (the
+   cache stores exactly what the head receives, so they are expected
+   bit-equal); build seconds, images/s, cache MB, QA/s over steps 3-6 and
+   the peak device memory are printed beside the card.
+
 Per-path launch counts go on a line of their own. The line before the last
 is a JSON object of per-kernel launches (kernels A and B: the attention
 model's serving path; kernel C: its float-route training run), errors,
@@ -109,6 +138,13 @@ RESUME_RTOL = 1e-5
 # (the CPU parity runs of tests/test_torch_vgg_train.py): 1e-4 holds that
 # with a margin of 4
 VGG_RESUME_RTOL = 1e-4
+# the ETL and cache phases: COCO-named JPEGs, two questions an image
+N_CACHE_TRAIN_IMAGES, N_CACHE_VAL_IMAGES, QUESTIONS_PER_IMAGE = 96, 32, 2
+JPEG_W, JPEG_H, JPEG_QUALITY = 640, 480, 90
+DECODE_THREADS = 8
+# vqa_tpu's bound on the native decoder's distance from PIL (another DCT
+# method and resampler): mean absolute difference per channel value
+NATIVE_PIL_MEAN_ABS = 12.0
 # H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s, int8
 # tensor-core ops/s, bf16 tensor-core FLOP/s (f32 sums), f32 CUDA-core FLOP/s
 HBM_BPS, INT8_OPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 1979e12, 989e12, 67e12
@@ -772,6 +808,259 @@ def train_phase(vocab_file, card="", device="cuda"):
     return path_launches
 
 
+def etl_phase(card: str) -> dict:
+    """Synthetic VQA-v2 JSON -> ``python -m vqa_tpu_torch.prepare_data`` for
+    train (with the vocab) and val, then one JPEG per image of the ETL's
+    files. Returns the files, image directories and image paths."""
+    import numpy as np
+    from PIL import Image
+
+    etl = os.path.join(WORK, "etl")
+    os.makedirs(etl, exist_ok=True)
+    rng = np.random.default_rng(5)
+    ids = rng.choice(581_000, N_CACHE_TRAIN_IMAGES + N_CACHE_VAL_IMAGES, replace=False) + 1
+    words = ["what", "is", "the", "color", "of", "how", "many", "are", "there", "on",
+             "in", "this", "a", "man", "woman", "dog", "cat", "table", "car", "sky"]
+    words += [f"thing{i}" for i in range(200)]
+    answers = ["yes", "no", "2", "red", "blue", "white"] + [f"ans{i}" for i in range(60)]
+    out = {"dirs": {}, "files": {}, "images": []}
+    t0 = time.perf_counter()
+    for split, img_ids in (("train", ids[:N_CACHE_TRAIN_IMAGES]),
+                           ("val", ids[N_CACHE_TRAIN_IMAGES:])):
+        anns, ques = [], []
+        for img in img_ids:
+            for _ in range(QUESTIONS_PER_IMAGE):
+                qid = len(anns) + 1
+                n = int(rng.integers(4, 12))
+                question = " ".join(words[int(j)] for j in rng.integers(0, len(words), n)) + "?"
+                ans = answers[int(rng.integers(len(answers)))]
+                anns.append({"image_id": int(img), "question_id": qid, "question_type": "what",
+                             "answer_type": "other", "multiple_choice_answer": ans,
+                             "answers": [{"answer": ans, "answer_id": 1}]})
+                ques.append({"image_id": int(img), "question_id": qid, "question": question})
+        a, q = os.path.join(etl, f"ann_{split}.json"), os.path.join(etl, f"ques_{split}.json")
+        with open(a, "w") as f:
+            json.dump({"info": {"version": "2.0"}, "annotations": anns}, f)
+        with open(q, "w") as f:
+            json.dump({"info": {"version": "2.0"}, "questions": ques}, f)
+        txt = os.path.join(etl, f"{split}.txt")
+        cmd = [sys.executable, "-m", "vqa_tpu_torch.prepare_data", "--balanced_real_images",
+               "-s", split, "-a", a, "-q", q, "-o", txt]
+        if split == "train":
+            cmd += ["-v", os.path.join(etl, "vocab.pkl"), "-c", "1", "-K", str(ANSWERS)]
+        subprocess.run(cmd, cwd=ROOT, check=True, capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": ROOT})
+        with open(txt) as f:
+            lines = f.read().splitlines()
+        names = sorted({ln.split("\t")[0] for ln in lines})
+        want = sorted(f"COCO_{split}2014_{int(i):012d}.jpg" for i in img_ids)
+        if len(lines) != QUESTIONS_PER_IMAGE * len(img_ids) or names != want:
+            raise AssertionError(f"prepare_data -s {split}: {len(lines)} lines, image names "
+                                 f"{names[:2]}... do not match the annotations")
+        img_dir = os.path.join(etl, f"{split}2014")
+        os.makedirs(img_dir, exist_ok=True)
+        for name in names:
+            g = np.linspace(0, 255, JPEG_W, dtype=np.uint8)
+            img = np.stack([np.tile(g, (JPEG_H, 1))] * 3, axis=-1).astype(int)
+            img = np.clip(img + rng.integers(-20, 20, img.shape), 0, 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(img_dir, name), quality=JPEG_QUALITY)
+            out["images"].append(os.path.join(img_dir, name))
+        out["dirs"][split], out["files"][split] = img_dir, txt
+    with open(os.path.join(etl, "vocab.pkl"), "rb") as f:
+        vocab = pickle.load(f)
+    out["vocab"] = os.path.join(etl, "vocab.pkl")
+    print(f"etl: prepare_data wrote {QUESTIONS_PER_IMAGE * N_CACHE_TRAIN_IMAGES} train and "
+          f"{QUESTIONS_PER_IMAGE * N_CACHE_VAL_IMAGES} val lines, vocab of "
+          f"{len(vocab['word2idx'])} words and {len(vocab['label2idx'])} labels, "
+          f"max_seq_length {vocab['max_seq_length']}; {len(out['images'])} JPEGs "
+          f"{JPEG_W}x{JPEG_H} q{JPEG_QUALITY} in {time.perf_counter() - t0:.2f} s ({card})",
+          flush=True)
+    return out
+
+
+def native_decoder_buildable() -> tuple[bool, str]:
+    """Whether libjpeg's headers are there for the native decoder's build
+    (jpeglib.h needs <cstdio> before it, as the decoder's source has it)."""
+    try:
+        proc = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                              input="#include <cstdio>\n#include <jpeglib.h>\n",
+                              capture_output=True, text=True, timeout=60)
+    except FileNotFoundError:
+        return False, "no g++"
+    if proc.returncode != 0:
+        errors = [ln for ln in proc.stderr.splitlines() if "error" in ln]
+        return False, (errors or ["g++ exited " + str(proc.returncode)])[0].strip()
+    return True, ""
+
+
+def decode_phase(paths: list, native: bool, card: str) -> None:
+    """Each engine over the JPEGs at 448² and 224², after a warm-up batch
+    (it builds the library and spawns the pool): images/s, and the native
+    engines' bytes against each other and against PIL."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from vqa_tpu_torch.data.images import decode_batch
+
+    engines = ("pil", "native", "native_mp") if native else ("pil",)
+    with ThreadPoolExecutor(DECODE_THREADS) as pool:
+        for size in (IMAGE, IMAGE_224):
+            outs, rates = {}, {}
+            for engine in engines:
+                def run(batch_paths):
+                    return decode_batch(batch_paths, size, pool=pool, backend=engine,
+                                        native_threads=DECODE_THREADS)
+                run(paths[:BATCH])
+                t0 = time.perf_counter()
+                out = np.concatenate([run(paths[i:i + BATCH])
+                                      for i in range(0, len(paths), BATCH)])
+                rates[engine] = len(paths) / (time.perf_counter() - t0)
+                if out.shape != (len(paths), size, size, 3) or out.dtype != np.uint8 \
+                        or not out.any(axis=(1, 2, 3)).all():
+                    raise AssertionError(f"decode {engine} {size}²: shape {out.shape}, "
+                                         f"{out.dtype}, or an empty image")
+                outs[engine] = out
+            line = ", ".join(f"{e} {r:.1f} images/s" for e, r in rates.items())
+            print(f"decode {len(paths)} JPEGs {JPEG_W}x{JPEG_H} -> {size}², "
+                  f"{DECODE_THREADS} threads/processes, os.cpu_count() {os.cpu_count()}: "
+                  f"{line} ({card})", flush=True)
+            if native:
+                from vqa_tpu_torch.native import decode_batch_native
+                _, ok = decode_batch_native(paths, size, threads=DECODE_THREADS)
+                mad = np.abs(outs["native"].astype(int) - outs["pil"].astype(int)).mean()
+                same = np.array_equal(outs["native_mp"], outs["native"])
+                print(f"decode {size}²: native status all ok {bool(ok.all())}, native_mp == "
+                      f"native {same}, mean |native - pil| {mad:.4f} (bound "
+                      f"{NATIVE_PIL_MEAN_ABS})", flush=True)
+                if not (ok.all() and same and mad < NATIVE_PIL_MEAN_ABS):
+                    raise AssertionError(f"decode {size}²: the native engines disagree")
+
+
+def cache_phase(etl: dict, native: bool, card: str, device="cuda") -> dict:
+    """Cached against uncached training on the ETL's files and JPEGs:
+    attention at 448² on the int8 route (uncached, cached with a build,
+    cached with reuse), baseline at 224² at ``--opt_lvl 0`` (uncached,
+    cached). Returns {path: launches}, each read just after its own run."""
+    import shutil
+
+    import torch
+    from vqa_tpu_torch import _build
+    from vqa_tpu_torch.main import main as vqa_main
+    from vqa_tpu_torch.models import layers
+
+    runs = os.path.join(WORK, "cache_runs")
+    cache_root = os.path.join(WORK, "feature_cache")
+    shutil.rmtree(runs, ignore_errors=True)
+    shutil.rmtree(cache_root, ignore_errors=True)
+    path_launches = {}
+    build_batches = -(-N_CACHE_TRAIN_IMAGES // BATCH) + -(-N_CACHE_VAL_IMAGES // BATCH)
+    engine = "native_mp" if native else "pil"
+
+    def run(model, path, run_name, *extra):
+        """One ``main`` train run; its launches, QA/s over steps 3-6, peak memory."""
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_counts()
+        out = vqa_main(["--mode", "train", "--model", model, "--expt_dir", runs,
+                        "--expt_name", "cache", "--run_name", run_name,
+                        "--train_img", etl["dirs"]["train"], "--train_file", etl["files"]["train"],
+                        "--val_img", etl["dirs"]["val"], "--val_file", etl["files"]["val"],
+                        "--vocab_file", etl["vocab"], "--batch_size", str(BATCH),
+                        "--num_epochs", "1", "--num_cls", str(ANSWERS), "--log_interval", "2",
+                        "--save_interval", "1000",
+                        "--val_size", str(QUESTIONS_PER_IMAGE * N_CACHE_VAL_IMAGES),
+                        "--num_workers", str(DECODE_THREADS), "--device", device, *extra])
+        launches, plain = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        path_launches[path] = launches
+        sync = dict(out["sync_points"])
+        qa_s = 4 * BATCH / (sync[6] - sync[2])
+        finite = all(v == v and abs(v) != float("inf") for v in out["losses"])
+        print(f"launches path={path.replace(' ', '_')}: {json.dumps(launches)}", flush=True)
+        print(f"{path}: {out['steps']} steps, {out['eval_batches']} eval batches, decode "
+              f"{out['decode_backend']}, steps 3-6 {qa_s:.2f} QA/s, peak device memory "
+              f"{peak:.2f} GiB, losses {out['losses']} ({card})", flush=True)
+        if any(plain.values()) or out["steps"] != QUESTIONS_PER_IMAGE * N_CACHE_TRAIN_IMAGES \
+                // BATCH or not finite:
+            raise AssertionError(f"{path}: plain convs on the card {plain}, or not 6 finite "
+                                 f"steps")
+        shutil.rmtree(out["log_dir"])
+        return out, launches
+
+    def caches(out, built: bool):
+        for c in out["feature_caches"]:
+            mb = os.path.getsize(os.path.join(c.cache_dir, "features.bin")) / 1e6
+            n = len(c.meta["names"])
+            rate = f"{c.build_seconds:.2f} s, {n / c.build_seconds:.1f} images/s" \
+                if c.build_seconds is not None else "reused"
+            print(f"  cache {os.path.basename(c.cache_dir)}: {n} images, {c.meta['dtype']} "
+                  f"{c.feature_shape}, {mb:.2f} MB, {rate} ({card})", flush=True)
+        if len(out["feature_caches"]) != 2 or \
+                any((c.build_seconds is not None) != built for c in out["feature_caches"]):
+            raise AssertionError(f"expected both caches {'built' if built else 'reused'}")
+
+    def same_losses(tag, cached, ref):
+        diff = max(abs(a - b) / abs(b) for a, b in zip(cached["losses"], ref["losses"]))
+        print(f"{tag}: cached vs uncached losses bit-equal "
+              f"{cached['losses'] == ref['losses']}, max relative difference {diff} "
+              f"(tolerance {RESUME_RTOL})", flush=True)
+        if not diff <= RESUME_RTOL:
+            raise AssertionError(f"{tag}: the cached losses differ from the uncached ones")
+
+    # attention, 448², int8 route: one calibration batch
+    flags = ("--opt_lvl", "1", "--int8_calib", "1")
+    ref, launches = run("attention", "cache attention uncached", "att_uncached", *flags)
+    forwards = 1 + ref["steps"] + ref["eval_batches"]
+    if ref["decode_backend"] != engine or launches["conv0_s2d_i8"] != forwards \
+            or launches["conv3x3_i8"] != 7 * forwards or launches["conv0_f"]:
+        raise AssertionError(f"uncached attention: decode {ref['decode_backend']} (expected "
+                             f"{engine}), or not A once and B 7 times a forward: {launches}")
+    cached_flags = (*flags, "--cache_features", "true", "--cache_dir", cache_root)
+    built, launches = run("attention", "cache attention build", "att_build", *cached_flags)
+    caches(built, built=True)
+    if launches["conv0_s2d_i8"] != 1 + build_batches \
+            or launches["conv3x3_i8"] != 7 * (1 + build_batches) or launches["conv0_f"]:
+        raise AssertionError(f"cached attention: A and B not exactly once and 7 times per "
+                             f"calibration and build batch: {launches}")
+    same_losses("cache attention 448² int8", built, ref)
+    reused, launches = run("attention", "cache attention reuse", "att_reuse", *cached_flags)
+    caches(reused, built=False)
+    if launches["conv0_s2d_i8"] != 1 or launches["conv3x3_i8"] != 7 or launches["conv0_f"]:
+        raise AssertionError(f"reused attention cache: A and B beyond the calibration "
+                             f"batch: {launches}")
+    same_losses("cache attention 448² int8, reused", reused, ref)
+
+    # baseline, 224², float route at --opt_lvl 0 (kernel C in f32), dropout live
+    flags = ("--opt_lvl", "0")
+    ref, launches = run("baseline", "cache baseline uncached", "base_uncached", *flags)
+    if launches["conv0_f"] != ref["steps"] + ref["eval_batches"] \
+            or launches["conv0_s2d_i8"] or launches["conv3x3_i8"]:
+        raise AssertionError(f"uncached baseline: not kernel C once a forward: {launches}")
+    dropouts = []
+    forward = layers.Dropout.forward
+
+    def counted(self, x):
+        if self.training:
+            dropouts.append(1)
+        return forward(self, x)
+
+    layers.Dropout.forward = counted
+    try:
+        built, launches = run("baseline", "cache baseline build", "base_build", *flags,
+                              "--cache_features", "true", "--cache_dir", cache_root)
+    finally:
+        layers.Dropout.forward = forward
+    caches(built, built=True)
+    print(f"cache baseline: {len(dropouts)} live dropout calls in {built['steps']} cached "
+          f"steps", flush=True)
+    if launches["conv0_f"] != build_batches or launches["conv0_s2d_i8"] \
+            or launches["conv3x3_i8"] or len(dropouts) != 3 * built["steps"]:
+        raise AssertionError(f"cached baseline: kernel C not once per build batch, or the "
+                             f"head's three dropouts not in every step: {launches}")
+    same_losses("cache baseline 224² f32", built, ref)
+    shutil.rmtree(cache_root)
+    return path_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -811,6 +1100,14 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches = train_phase(vocab_file, card)
     print(f"train phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    etl = etl_phase(card)
+    native, reason = native_decoder_buildable()
+    if not native:
+        print(f"native decoder: not buildable on this host ({reason})", flush=True)
+    decode_phase(etl["images"], native, card)
+    t0 = time.perf_counter()
+    train_launches.update(cache_phase(etl, native, card))
+    print(f"cache phase: {time.perf_counter() - t0:.2f} s", flush=True)
 
     def kernel_fields(image, k, mode):
         r = rows[image][(k.symbol, mode)]

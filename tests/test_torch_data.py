@@ -4,8 +4,8 @@ The port keeps its own copies of vqa_tpu's text, vocab, image-decode,
 dataset and loader modules; on the same inputs they must give the same
 bytes: token lists, padded ids, vocab pickles, decoded pixels, tokenized
 dataset arrays and the loader's batch order (seed, epoch, intra-epoch
-resume). Also: the port imports nothing of vqa_tpu, and the decoders it has
-not ported raise.
+resume). Also: the port imports nothing of vqa_tpu. The native decoders are
+held against vqa_tpu's in tests/test_torch_native_decoder.py.
 """
 
 import os
@@ -89,13 +89,6 @@ def test_decode_batch_equal(tmp_path):
         out = t_images.decode_batch(paths, size, synthetic_fallback=True)
         assert out.dtype == np.uint8 and out.shape == (3, size, size, 3)
         assert out.tobytes() == ref.tobytes()
-
-
-def test_unported_decoders_raise(tmp_path):
-    for backend in ("native", "native_mp"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            t_images.decode_batch([str(tmp_path / "x.jpg")], 8, synthetic_fallback=True,
-                                  backend=backend)
 
 
 def test_samples_equal(data_file, tmp_path):

@@ -162,7 +162,10 @@ def test_port_imports_no_jax():
     code = ("import sys; import vqa_tpu_torch.serve, vqa_tpu_torch.models.convert, "
             "vqa_tpu_torch.train.calibrate, vqa_tpu_torch.ops.conv_stem, "
             "vqa_tpu_torch.models.baseline, vqa_tpu_torch.models.bert, "
-            "vqa_tpu_torch.main, vqa_tpu_torch.profile_train; "
+            "vqa_tpu_torch.main, vqa_tpu_torch.profile_train, "
+            "vqa_tpu_torch.datahelper, vqa_tpu_torch.prepare_data, "
+            "vqa_tpu_torch.native, vqa_tpu_torch.native.jpeg, "
+            "vqa_tpu_torch.data.feature_cache, vqa_tpu_torch.data._decode_worker; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vqa_tpu')]; "
             "assert not bad, bad")

@@ -245,8 +245,7 @@ def test_pth_export_loads_for_serving_and_resume(cli_data, tmp_path):
 
 @pytest.mark.parametrize("flags", [
     ("--num_devices", "2"), ("--model_parallel", "2"), ("--fsdp", "true"),
-    ("--seq_parallel", "true"), ("--force_mesh", "true"), ("--cache_features", "true"),
-    ("--ckpt_backend", "orbax"), ("--decode_backend", "native_mp"),
+    ("--seq_parallel", "true"), ("--force_mesh", "true"), ("--ckpt_backend", "orbax"),
 ])
 def test_unported_flags_raise(cli_data, flags):
     with pytest.raises(NotImplementedError, match="not ported yet"):

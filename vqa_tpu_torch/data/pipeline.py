@@ -1,15 +1,22 @@
-"""Input pipeline: batch loader, host decode threads, device preprocess
-(port of vqa_tpu/data/pipeline.py).
+"""Input pipeline: batch loader, host decode, device preprocess (port of
+vqa_tpu/data/pipeline.py).
 
 :class:`DataLoader` (vqa_tpu/data/pipeline.py:61-218) assembles batches on
 a background thread: pre-tokenized question arrays (``VQASamples``) plus
-images decoded by a thread pool, pushed onto a bounded queue. The epoch
+images decoded by ``images.decode_batch``, pushed onto a bounded queue. The
+decode engine is vqa_tpu's choice: ``auto`` resolves to ``native_mp`` (a
+process pool of native decoders) for a loader on real data with
+``num_workers > 1`` when the native library builds, else to ``native``
+threads (every file a JPEG) or PIL threads; the loader prints what it chose.
+In feature mode (``feature_cache``: ``data.feature_cache.FeatureCache``)
+a batch gathers the cached rows of its images instead of decoding pixels;
+neither that mode nor ``native_mp`` keeps a decode thread pool. The epoch
 order is vqa_tpu's, a pure function of ``(seed, epoch)``, so a run resumed
 with ``set_epoch(epoch, skip_batches)`` sees the batches an uninterrupted
 run would. With ``pin_memory`` the producer thread also copies each image
-batch into pinned host memory, so the H2D copy in :func:`device_batch` is
-an asynchronous DMA. The feature cache, sharding over hosts and the native
-decoders are not ported yet and raise.
+(or feature) batch into pinned host memory, so the H2D copy in
+:func:`device_batch` is an asynchronous DMA. Sharding over hosts is not
+ported yet and raises.
 
 :func:`preprocess_images` (vqa_tpu/data/pipeline.py:37-58), on the device:
 uint8 [B, H, W, 3] -> /255 -> ImageNet normalize, on the target device. A
@@ -39,7 +46,7 @@ import torch.nn.functional as F
 
 from ..ops.quant import const
 from .dataset import VQASamples
-from .images import decode_batch
+from .images import all_jpeg, decode_batch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -75,14 +82,30 @@ def make_image_preprocessor(image_size: int, compute_dtype=torch.float32,
     return fn
 
 
+def _resolve_auto(image_names, synthetic_images: bool, num_workers: int) -> str:
+    """vqa_tpu's resolution of ``auto`` for a loader: the native process pool
+    on real data with more than one worker (it beat both thread-pool engines
+    in vqa_tpu's measurements, BASELINE.md r3), else native threads when
+    every file is a JPEG, else PIL. Each native engine needs the library
+    built (one attempt a process)."""
+    from ..native.jpeg import native_available
+
+    if not synthetic_images and num_workers > 1 and native_available():
+        return "native_mp"
+    if all_jpeg(image_names) and native_available():
+        return "native"
+    return "pil"
+
+
 class DataLoader:
     """Shuffling, prefetching batch loader over :class:`VQASamples`.
 
     Yields dicts ``{image: uint8 [B,S,S,3], question: int32 [B,L],
     ques_len: int32 [B], label: int32 [B]}``; ``image`` is a numpy array,
     or a pinned uint8 tensor with ``pin_memory``, and the rest are numpy.
-    Same arguments as vqa_tpu's loader; ``decode_backend`` takes 'auto' or
-    'pil', and ``feature_cache`` or ``num_shards > 1`` raise (not ported).
+    In feature mode ``image`` is a tensor of cached feature rows in the
+    cache's dtype. Same arguments as vqa_tpu's loader; ``num_shards > 1``
+    raises (not ported).
     """
 
     def __init__(self, samples: VQASamples, batch_size: int, *, host_size: int,
@@ -91,13 +114,19 @@ class DataLoader:
                  shard_index: int = 0, num_shards: int = 1,
                  decode_backend: str = "auto", feature_cache=None,
                  pin_memory: bool = False):
-        if feature_cache is not None:
-            raise NotImplementedError("the feature cache is not ported yet "
-                                      "(ROADMAP.md queue 1 item 6)")
         if num_shards != 1 or shard_index != 0:
             raise NotImplementedError("sharding the data over hosts is not "
                                       "ported yet (ROADMAP.md queue 1 item 8)")
         self.samples = samples
+        self.feature_cache = feature_cache
+        if feature_cache is not None:
+            self._feature_rows = np.fromiter(
+                (feature_cache.row_of[n] for n in samples.image_names),
+                np.int64, count=len(samples.image_names))
+        elif decode_backend == "auto":
+            decode_backend = _resolve_auto(samples.image_names, synthetic_images,
+                                           num_workers)
+            print(f"data loader: --decode_backend auto -> {decode_backend}")
         self.batch_size = batch_size
         self.host_size = host_size
         self.shuffle = shuffle
@@ -106,10 +135,14 @@ class DataLoader:
         self.synthetic_images = synthetic_images
         self.prefetch = max(1, prefetch)
         self.decode_backend = decode_backend
+        self.num_workers = num_workers
         self.pin_memory = pin_memory
         self._epoch = 0
         self._skip_batches = 0
-        self._pool = ThreadPoolExecutor(num_workers) if num_workers > 0 else None
+        # feature mode gathers memmap rows, and native_mp owns its processes
+        self._pool = ThreadPoolExecutor(num_workers) \
+            if (num_workers > 0 and feature_cache is None
+                and decode_backend not in ("native", "native_mp")) else None
 
     def __len__(self) -> int:
         n = len(self.samples)
@@ -132,12 +165,18 @@ class DataLoader:
         return order
 
     def _make_batch(self, idx: np.ndarray) -> dict:
-        paths = [self.samples.image_path(i) for i in idx]
-        images = decode_batch(paths, self.host_size, pool=self._pool,
-                              synthetic_fallback=self.synthetic_images,
-                              backend=self.decode_backend)
-        if self.pin_memory:
-            images = torch.from_numpy(images).pin_memory()
+        if self.feature_cache is not None:
+            images = self.feature_cache.gather(self._feature_rows[idx])
+            if self.pin_memory:
+                images = images.pin_memory()
+        else:
+            paths = [self.samples.image_path(i) for i in idx]
+            images = decode_batch(paths, self.host_size, pool=self._pool,
+                                  synthetic_fallback=self.synthetic_images,
+                                  backend=self.decode_backend,
+                                  native_threads=max(self.num_workers, 1))
+            if self.pin_memory:
+                images = torch.from_numpy(images).pin_memory()
         return {
             "image": images,
             "question": self.samples.questions[idx],
@@ -202,10 +241,12 @@ class DataLoader:
 
 def device_batch(batch: dict, preprocess, device) -> dict:
     """Host batch -> device batch: the image through ``preprocess`` (H2D +
-    normalize on ``device``), the int arrays as int64 tensors there."""
+    normalize on ``device``), or, with ``preprocess=None``, cached feature
+    rows copied as they are; the int arrays as int64 tensors there."""
     out = {k: torch.from_numpy(np.asarray(batch[k])).long().to(device, non_blocking=True)
            for k in ("question", "ques_len", "label")}
-    out["image"] = preprocess(batch["image"])
+    out["image"] = (batch["image"].to(device, non_blocking=True) if preprocess is None
+                    else preprocess(batch["image"]))
     return out
 
 

@@ -26,10 +26,19 @@ evaluation keep the running stats. ``--grad_accum N`` accumulates N
 microbatches a step; ``--profile_steps N`` writes a ``torch.profiler``
 trace of N steps into the run directory.
 
+``--cache_features true`` runs the frozen tower once per unique image
+(``data.feature_cache``): after the checkpoint loads and the int8 stages
+calibrate, a build pass writes (or a later run reuses) one cache per
+dataset under ``--cache_dir`` (default ``<run dir>/feature_cache``), and
+every train step and eval batch then reads cached rows: no VGG forward runs
+in them. It needs a frozen VGG with running statistics (``--vgg_train
+true`` and ``--bn_mode batch`` exit). ``--decode_backend`` takes vqa_tpu's
+engines: ``auto`` (a process pool of native decoders for real data with
+``--num_workers > 1``), ``native``, ``native_mp`` and ``pil``.
+
 Not ported yet, each raising with its ROADMAP.md queue item:
 ``--num_devices > 1``, ``--model_parallel``, ``--fsdp``, ``--seq_parallel``,
-``--force_mesh``, ``--ckpt_backend orbax``, ``--cache_features`` and the
-native decoders; export is not ported either.
+``--force_mesh`` and ``--ckpt_backend orbax``; export is not ported either.
 ``--gpu_id`` is accepted and ignored, as in vqa_tpu.
 """
 
@@ -93,10 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
     add("--device", type=str, default="cuda",
         help="torch device; 'cuda' (the default) fails without a card")
     # input pipeline (main.py:76)
-    add("--num_workers", type=int, default=6, help="host image-decode threads")
+    add("--num_workers", type=int, default=6,
+        help="host image-decode threads (native_mp: processes)")
     add("--decode_backend", type=str, default="auto",
         choices=["auto", "native", "pil", "native_mp"],
-        help="host decode engine: auto = pil here (native, native_mp: not ported yet)")
+        help="host decode engine: auto = native_mp for real data with --num_workers > 1 "
+             "when the native decoder builds, else native for JPEGs, else pil")
     # vqa_tpu extensions
     add("--num_devices", type=int, default=1, help="data-parallel devices (not ported yet)")
     add("--model_parallel", type=int, default=1, help="tensor-parallel ways (not ported yet)")
@@ -127,7 +138,9 @@ def build_parser() -> argparse.ArgumentParser:
              "always running stats")
     add("--prefetch_batches", type=int, default=2,
         help="device batches enqueued ahead of the train step (<=1 disables)")
-    add("--cache_features", type=str2bool, default="false", help="not ported yet")
+    add("--cache_features", type=str2bool, default="false",
+        help="run the frozen image tower once per image into an on-disk cache and "
+             "train the head on it (needs --vgg_train false and running-stats BN)")
     add("--int8_backbone", type=str, default="auto", choices=["auto", "true", "false"],
         help="int8-PTQ frozen VGG; auto = on at --opt_lvl >= 1 on a CUDA device")
     add("--hpack_pool", type=str2bool, default="true",
@@ -140,7 +153,9 @@ def build_parser() -> argparse.ArgumentParser:
         help="comma-separated conv indices (0-7) to int8-quantize")
     add("--int8_calib", type=int, default=8,
         help="train batches for static int8 calibration (0 = dynamic scales)")
-    add("--cache_dir", type=str, default="", help="feature-cache root (not ported yet)")
+    add("--cache_dir", type=str, default="",
+        help="feature-cache root (default: <run dir>/feature_cache); a cache is "
+             "keyed by the weights, calibration, dataset and input pipeline")
     return parser
 
 
@@ -152,10 +167,7 @@ def _reject_unported(args) -> None:
         (args.fsdp, "--fsdp", 8),
         (args.seq_parallel, "--seq_parallel", 8),
         (args.force_mesh, "--force_mesh", 8),
-        (args.cache_features, "--cache_features", 6),
         (args.ckpt_backend == "orbax", "--ckpt_backend orbax", 8),
-        (args.decode_backend in ("native", "native_mp"),
-         f"--decode_backend {args.decode_backend}", 3),
     ]
     for bad, flag, item in checks:
         if bad:
@@ -187,6 +199,42 @@ def _load_vgg_weights(model, path: str) -> None:
         tower.fc_layers.load_state_dict({f"{j}.{p}": sd[f"classifier.{i}.{p}"]
                                          for i, j in ((0, 1), (3, 4))
                                          for p in ("weight", "bias")}, strict=True)
+
+
+def _make_feature_encoder(model_name: str, model, preprocess):
+    """``(encode_fn, fingerprint, boundary)`` of the feature cache's build
+    (vqa_tpu/main.py:330-384): ``encode_fn`` maps host uint8 images to the
+    model's cacheable frozen values (``VQANet.cache_features``); the
+    fingerprint covers exactly the tensors that encoder reads (the conv
+    stack's parameters and BatchNorm buffers: a head-only change keeps the
+    cache); the boundary names it, with the int8 routing and the calibrated
+    scales, which change the values, so int8, float and differently
+    calibrated caches never share a directory."""
+    from .data.feature_cache import variables_fingerprint
+
+    vgg = model.vgg
+    stages = vgg.int8_stages
+    int8_tag = ""
+    if stages:
+        int8_tag = f"|i8{','.join(map(str, stages))}"
+        if vgg.hpack_pool:
+            int8_tag += "|hp"
+        if vgg.fused_stem and vgg.int8_amax and 0 in stages and 1 in stages:
+            int8_tag += "|fs"       # conv1's input quantized from conv0's epilogue
+        if vgg.int8_handoff and vgg.int8_amax and any((i + 1) in stages for i in stages):
+            int8_tag += "|ho"       # stage outputs quantized in the epilogue
+        if vgg.int8_amax:
+            int8_tag += "@" + ",".join(
+                f"{v:.8g}" for a in vgg.int8_amax
+                for v in (a if isinstance(a, (tuple, list)) else (a,)))
+    boundary = ("coattn_image_encoder" if model_name == "attention"
+                else "vgg11_features") + int8_tag
+
+    def encode(images_u8):
+        with torch.no_grad():
+            return model.cache_features(preprocess(images_u8))
+
+    return encode, variables_fingerprint(vgg.state_dict()), boundary
 
 
 def _host_images(loader, n: int):
@@ -236,11 +284,11 @@ def main(argv=None):
     log_dir = os.path.join(args.expt_dir, args.expt_name, args.run_name)
     os.makedirs(log_dir, exist_ok=True)
 
-    def make_loader(samples, shuffle=True, drop_last=True):
+    def make_loader(samples, shuffle=True, drop_last=True, feature_cache=None):
         return DataLoader(samples, args.batch_size, host_size=host_size, shuffle=shuffle,
                           drop_last=drop_last, num_workers=args.num_workers, seed=args.seed,
                           synthetic_images=args.synthetic_images,
-                          decode_backend=args.decode_backend,
+                          decode_backend=args.decode_backend, feature_cache=feature_cache,
                           pin_memory=device.type == "cuda")
 
     def samples_of(data_file, img_dir):
@@ -248,14 +296,23 @@ def main(argv=None):
                           vocab.max_seq_length)
 
     if args.mode == "train":
-        return train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device)
+        return train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device,
+                     image_size, host_size)
     return test(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device)
 
 
-def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device) -> dict:
+def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device,
+          image_size: int, host_size: int) -> dict:
     """The training loop of vqa_tpu/main.py:478-773. Returns a summary:
     per-step losses, host-clock train seconds at each sync point (with
-    validation and checkpoint time taken out), eval batches run."""
+    validation and checkpoint time taken out), eval batches run, the train
+    loader's decode engine and the feature caches opened (train, val)."""
+    if args.cache_features and args.vgg_train:
+        raise SystemExit("--cache_features requires a frozen VGG (--vgg_train false)")
+    if args.cache_features and args.bn_mode == "batch":
+        raise SystemExit("--cache_features requires running-stats BN: batch-stats "
+                         "features depend on the batch and cannot be cached "
+                         "(--bn_mode auto|running)")
     print(f"Training Log Directory: {log_dir}\n")
     writer = make_summary_writer(log_dir)
     log_file = setup_logs_file(vars(args), log_dir)
@@ -301,17 +358,39 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
                             log=lambda s: print_and_log(s, log_file))
             calib_loader.close()
 
-    train_loader = make_loader(train_dataset)
+    # the feature cache, after the weights load and the calibration, which
+    # both change the cached values (vqa_tpu/main.py:555-610)
+    image_is_features = bool(args.cache_features)
+    train_cache = val_cache = None
+    if image_is_features:
+        from .data.feature_cache import build_or_open
+        encode, fingerprint, boundary = _make_feature_encoder(args.model, model, preprocess)
+        cache_root = args.cache_dir or os.path.join(log_dir, "feature_cache")
+
+        def build_cache(samples):
+            return build_or_open(
+                cache_root, samples, encode, fingerprint=fingerprint, image_size=image_size,
+                dtype=model.dtype, boundary=boundary, batch_size=args.batch_size,
+                host_size=host_size, num_workers=args.num_workers,
+                synthetic_images=args.synthetic_images, decode_backend=args.decode_backend,
+                log=lambda s: print_and_log(s, log_file))
+
+        train_cache = build_cache(train_dataset)
+        if val_dataset is not None:
+            val_cache = build_cache(val_dataset)
+
+    train_loader = make_loader(train_dataset, feature_cache=train_cache)
     if val_dataset is not None:
-        val_loader = make_loader(val_dataset)
+        val_loader = make_loader(val_dataset, feature_cache=val_cache)
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise SystemExit(f"--grad_accum {args.grad_accum} must divide "
                          f"--batch_size {args.batch_size}")
     train_step = make_train_step(vgg_trainable=args.vgg_train,
                                  bn_batch_stats={"auto": None, "batch": True,
                                                  "running": False}[args.bn_mode],
-                                 grad_accum=args.grad_accum)
-    eval_step = make_eval_step()
+                                 grad_accum=args.grad_accum,
+                                 image_is_features=image_is_features)
+    eval_step = make_eval_step(image_is_features=image_is_features)
 
     steps_per_epoch = len(train_loader)
     curr_step = state.step
@@ -329,7 +408,7 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
     preempted = False
 
     def prepare_batch(b):
-        return device_batch(b, preprocess, device)
+        return device_batch(b, None if image_is_features else preprocess, device)
 
     def sync():
         if device.type == "cuda":
@@ -439,13 +518,18 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
         log_file.close()
     return {"losses": [float(v) for v in losses], "first_step": curr_step - len(losses),
             "steps": len(losses), "sync_points": sync_points,
-            "eval_batches": eval_batches, "preempted": preempted, "log_dir": log_dir}
+            "eval_batches": eval_batches, "preempted": preempted, "log_dir": log_dir,
+            "decode_backend": train_loader.decode_backend,
+            "feature_caches": [c for c in (train_cache, val_cache) if c is not None]}
 
 
 def test(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device) -> dict:
     """Evaluate ``--model_ckpt`` on ``--val_file`` (vqa_tpu/main.py:776-895)."""
     if not args.val_file:
         raise SystemExit("--mode test requires --val_file")
+    if args.cache_features:
+        print("NOTE: --cache_features is a training-loop feature; test mode "
+              "evaluates each image once and ignores it")
     needs_calib = False
     if model.int8_stages:
         from .train.calibrate import load_calib

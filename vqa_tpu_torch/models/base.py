@@ -12,6 +12,14 @@ counterpart of vqa_tpu's ``stop_gradient`` on the tower output
 (baseline.py:67-70, coattention.py:98-100). The int8 fields of the VGG's
 conv stack and the precision policy are exposed the same way for every
 family.
+
+The feature cache (``data.feature_cache``) splits the frozen tower once
+more: :meth:`VQANet.cache_features` is its frozen, deterministic part (what
+a build pass stores: the attention model's image encoder output, the conv
+stack for baseline and bert), :meth:`VQANet.features_from_cache` the rest
+(nothing, or the classifier head with its live dropouts), and
+``forward(..., image_is_features=True)`` takes cached values in place of
+pixels (vqa_tpu's ``image_is_features``).
 """
 
 from __future__ import annotations
@@ -66,13 +74,26 @@ class VQANet(nn.Module):
         with torch.set_grad_enabled(self.vgg_trainable and torch.is_grad_enabled()):
             return self.tower(x_img, batch_stats=not use_running_stats)
 
+    def cache_features(self, x_img: torch.Tensor) -> torch.Tensor:
+        """The frozen tower's cacheable part for a preprocessed image batch,
+        in the compute dtype, without autograd (the cache's boundary)."""
+        raise NotImplementedError
+
+    def features_from_cache(self, cached: torch.Tensor) -> torch.Tensor:
+        """:meth:`frozen_features`' value from :meth:`cache_features`' value."""
+        raise NotImplementedError
+
     def head(self, feats: torch.Tensor, x_ques: torch.Tensor,
              x_ques_lens: torch.Tensor) -> torch.Tensor:
         """Logits [B, K] from the tower's features and the question."""
         raise NotImplementedError
 
     def forward(self, x_img: torch.Tensor, x_ques: torch.Tensor,
-                x_ques_lens: torch.Tensor, use_running_stats: bool = True) -> torch.Tensor:
+                x_ques_lens: torch.Tensor, use_running_stats: bool = True,
+                image_is_features: bool = False) -> torch.Tensor:
         """x_img [B, H, W, 3] normalized, ids [B, L], lengths [B] -> logits [B, K].
-        ``use_running_stats=False``: batch-stats BatchNorm (training only)."""
-        return self.head(self.features(x_img, use_running_stats), x_ques, x_ques_lens)
+        ``use_running_stats=False``: batch-stats BatchNorm (training only).
+        ``image_is_features``: ``x_img`` holds :meth:`cache_features`' values."""
+        feats = (self.features_from_cache(x_img) if image_is_features
+                 else self.features(x_img, use_running_stats))
+        return self.head(feats, x_ques, x_ques_lens)

@@ -21,7 +21,10 @@ VGG head's two (a frozen head too: the reference keeps it in train mode)
 and the fusion's. The
 masks come from the generator that ``layers.set_dropout_generator`` gives the
 model (the training state's). Precision as in the co-attention model: the
-trained part runs under bf16 autocast at ``--opt_lvl >= 1``.
+trained part runs under bf16 autocast at ``--opt_lvl >= 1``. With the
+feature cache the conv stack's output is cached and the classifier head
+runs in the step (``features_from_cache``), so its dropouts draw the masks
+of the uncached step.
 """
 
 from __future__ import annotations
@@ -101,6 +104,14 @@ class VQABaselineNet(VQANet):
     def frozen_features(self, x_img: torch.Tensor) -> torch.Tensor:
         """The VGG with its classifier head: [B, 4096], no autograd."""
         return self.image_encoder.vgg11_encoder(x_img)
+
+    def cache_features(self, x_img: torch.Tensor) -> torch.Tensor:
+        """The conv stack's [B, S/32, S/32, 512]: the head's dropouts are live
+        in training, so the classifier head stays out of the cache."""
+        return self.vgg(x_img)
+
+    def features_from_cache(self, cached: torch.Tensor) -> torch.Tensor:
+        return self.image_encoder.vgg11_encoder.from_features(cached)
 
     def tower(self, x_img: torch.Tensor, batch_stats: bool) -> torch.Tensor:
         return self.image_encoder.vgg11_encoder.train_forward(

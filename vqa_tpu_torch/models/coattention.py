@@ -188,6 +188,13 @@ class HierarchicalCoAttentionNet(VQANet):
         ops must not be autocast) and runs without autograd (frozen)."""
         return self.image_encoder(x_img)
 
+    def cache_features(self, x_img: torch.Tensor) -> torch.Tensor:
+        """The image encoder's [B, 196, 512]: all of the frozen tower."""
+        return self.frozen_features(x_img)
+
+    def features_from_cache(self, cached: torch.Tensor) -> torch.Tensor:
+        return cached.to(self.dtype)
+
     def tower(self, x_img: torch.Tensor, batch_stats: bool) -> torch.Tensor:
         x = self.vgg.train_forward(x_img, batch_stats=batch_stats, remat=self.remat)
         b, h, w, c = x.shape

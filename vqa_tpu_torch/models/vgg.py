@@ -410,6 +410,12 @@ class VGG11HeadEncoder(nn.Module):
         """x [B, H, W, 3] -> [B, 4096] (f32 under fp32, else autocast's dtype)."""
         return self._head(self.conv_layers(x))
 
+    @torch.no_grad()
+    def from_features(self, feats: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` from the conv stack's output (a feature cache's
+        rows, vgg.py:544-568 ``skip_features``): the head alone."""
+        return self._head(feats.to(self.dtype))
+
     def train_forward(self, x: torch.Tensor, *, batch_stats: bool,
                       remat: bool = False) -> torch.Tensor:
         """The tower under autograd; ``remat`` covers the conv stack only,

@@ -20,7 +20,10 @@ gradients are summed and divided by ``grad_accum``, loss and accuracy are
 the means of the microbatch means, and one Adam step follows (steps.py:
 95-124). It needs running-stats BatchNorm.
 
-Not ported: the feature cache (vqa_tpu's ``image_is_features``).
+``image_is_features`` (vqa_tpu's, steps.py:30,70,144-155): ``batch["image"]``
+holds a feature cache's rows (``data.feature_cache``), so the step skips the
+cached part of the frozen tower (``VQANet.forward``); a cached tower is
+frozen with running statistics, so it does not combine with batch stats.
 """
 
 from __future__ import annotations
@@ -37,18 +40,22 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tens
 
 
 def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = None,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, image_is_features: bool = False):
     """Build ``train_step(state, batch) -> {"loss", "accuracy"}`` (0-d
     device tensors, not synced). ``batch`` holds device tensors ``image``
-    (preprocessed), ``question``, ``ques_len`` and ``label`` (int64)."""
+    (preprocessed, or cached features with ``image_is_features``),
+    ``question``, ``ques_len`` and ``label`` (int64)."""
     use_batch_stats_bn = vgg_trainable if bn_batch_stats is None else bn_batch_stats
     if grad_accum > 1 and use_batch_stats_bn:
         raise ValueError("grad_accum requires running-stats BN "
                          "(per-microbatch stat updates change semantics)")
+    if image_is_features and use_batch_stats_bn:
+        raise ValueError("cached features come from a frozen running-stats tower")
 
     def forward_backward(model, batch):
         logits = model(batch["image"], batch["question"], batch["ques_len"],
-                       use_running_stats=not use_batch_stats_bn)
+                       use_running_stats=not use_batch_stats_bn,
+                       image_is_features=image_is_features)
         loss = cross_entropy_loss(logits, batch["label"])
         loss.backward()
         accuracy = (logits.detach().argmax(dim=-1) == batch["label"]).float().mean()
@@ -81,14 +88,17 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
     return train_step
 
 
-def make_eval_step():
+def make_eval_step(image_is_features: bool = False):
     """Build ``eval_step(model, batch)`` -> per-batch metrics: argmax
     correct count, mean CE, per-sample CE (so callers can weight out
     padding rows) and the predictions (reference main.py:301-335)."""
 
+    # the plain call unless the batch holds cached features
+    kwargs = {"image_is_features": True} if image_is_features else {}
+
     @torch.no_grad()
     def eval_step(model, batch: dict) -> dict:
-        logits = model(batch["image"], batch["question"], batch["ques_len"])
+        logits = model(batch["image"], batch["question"], batch["ques_len"], **kwargs)
         pred = logits.argmax(dim=-1)
         loss_per = F.cross_entropy(logits.float(), batch["label"], reduction="none")
         return {"num_correct": (pred == batch["label"]).sum(),
