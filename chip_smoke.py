@@ -33,7 +33,10 @@ without CUDA it exits non-zero before printing any result):
    kernels A and B ``torch._int_mm`` on the im2col matrix (A: its 27 taps
    zero-padded to 32; B: each layer's; the GEMM alone, its second operand
    column-major as cuBLASLt's int8 tensor-core GEMM takes it), for kernel C
-   ``F.conv2d`` (cuDNN, the conv alone; in f32 with TF32 off). The JSON line
+   ``F.conv2d`` (cuDNN, the conv alone; in f32 with TF32 off), and the host
+   time of a call through the kernel's registered operator against a direct
+   call of the operator's CUDA implementation (the operator's dispatch;
+   JSON ``dispatch_us``). The JSON line
    carries the 448² numbers of kernel A's requant mode, kernel B's conv1-7
    summed (static path) and kernel C in bf16; lines before it carry every
    mode at 448² and at 224²;
@@ -48,7 +51,18 @@ without CUDA it exits non-zero before printing any result):
 5. cross-device phase (attention, baseline): 2 of those requests through the
    same weights and calibration on the CPU's plain path; the VGG conv
    features must be bit-equal and the probabilities within PROB_TOL;
-6. train phase: ``vqa_tpu_torch.main.main`` trains at batch 32 on 192
+6. export phase: the serve phase's calibrated attention predictor (int8,
+   448², b32) answers the 96 requests live, exports with
+   ``vqa_tpu_torch.export.export_predictor`` (seconds and MB printed; no
+   kernel may launch while it exports), and a fresh process
+   (``exported_serve``) loads the artifact with ``ExportedPredictor`` on the
+   card, imports no model module and no JAX, and answers the same requests:
+   probabilities bit-equal to the live ones, kernel A 3 and B 21 launches;
+   then the same for the baseline at 224² and ``--opt_lvl 0`` (f32, seeded
+   weights): kernel C 3 launches. Each side then serves the requests again,
+   bit for bit; exported and live QA/s over batches 2-3 of that warm pass
+   and the load seconds are printed;
+7. train phase: ``vqa_tpu_torch.main.main`` trains at batch 32 on 192
    synthetic (image, question, answer) lines with 64 validation lines:
    the attention model's float route (``--opt_lvl 1 --int8_backbone false``:
    kernel C in bf16) and the baseline's at ``--opt_lvl 0`` (kernel C in
@@ -58,7 +72,7 @@ without CUDA it exits non-zero before printing any result):
    ``--mode test``; then 2 steps of the default int8 route (calibration,
    kernels A and B) for the attention and bert models. Each run zeroes the
    counts just before and reads them just after;
-7. the slice's training paths, on the same 192 and 64 lines at batch 32:
+8. the slice's training paths, on the same 192 and 64 lines at batch 32:
    the attention model with ``--vgg_train true --opt_lvl 1`` at 448² (the
    VGG trains through cuDNN with batch-stats BatchNorm and remat, Adam over
    every parameter; no kernel launches), 6 finite steps with a VGG conv
@@ -72,13 +86,13 @@ without CUDA it exits non-zero before printing any result):
    model with ``--grad_accum 2`` on the int8 route: kernel A once per
    calibration batch, microbatch and eval batch, kernel B 7 times as often.
 
-8. ETL phase: a synthetic VQA-v2 annotations/questions JSON pair with COCO
+9. ETL phase: a synthetic VQA-v2 annotations/questions JSON pair with COCO
    image ids (96 train images and 32 val images, two questions each: 192
    and 64 lines) through ``python -m vqa_tpu_torch.prepare_data
    --balanced_real_images`` (``-s train`` with ``-v``, then ``-s val``), as
    a user runs it; then one 640x480 JPEG (quality 90, seeded smooth
    gradient plus noise) per image under the COCO name the ETL wrote;
-9. decode phase at 448² and 224² over those JPEGs: ``pil`` on 8 threads,
+10. decode phase at 448² and 224² over those JPEGs: ``pil`` on 8 threads,
    ``native`` on 8 threads and ``native_mp`` on 8 worker processes, with
    images/s and ``os.cpu_count()``; ``native_mp`` equal to ``native`` byte
    for byte, ``native`` within a mean absolute difference of 12 of ``pil``.
@@ -86,7 +100,7 @@ without CUDA it exits non-zero before printing any result):
    first (``<cstdio>`` then ``<jpeglib.h>`` through ``g++ -fsyntax-only``) and,
    where they are missing, says so on a line of its own and runs ``pil``
    alone, here and in the cache phases;
-10. cache phases, on the ETL's files and JPEGs at batch 32: the attention
+11. cache phases, on the ETL's files and JPEGs at batch 32: the attention
    model at 448² on the int8 route (``--opt_lvl 1 --int8_calib 1``): an
    uncached run (whose ``auto`` decode engine resolves to ``native_mp``, or
    ``pil`` without the native decoder), a ``--cache_features true`` run
@@ -191,6 +205,34 @@ def timed(fn, n=20):
     return (cuda_ms(fn, n) + cuda_ms(fn, n)) / 2
 
 
+def host_us(fn, n=50) -> float:
+    """Mean host microseconds for a call to return (its enqueue), between
+    synchronizations."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * t / n
+
+
+def dispatch_pair(op_fn, direct_fn, rounds=6):
+    """Host µs a call through the registered operator and a direct call of
+    its CUDA implementation take: the least of ``rounds`` runs of each, in
+    turns (op, direct, direct, op, ...; after a warm-up), as a shared host's
+    interruptions only ever add time."""
+    op_fn(), direct_fn()
+    ops, directs = [], []
+    for i in range(rounds):
+        pair = (op_fn, direct_fn) if i % 2 == 0 else (direct_fn, op_fn)
+        t = [host_us(fn) for fn in pair]
+        ops.append(t[0] if i % 2 == 0 else t[1])
+        directs.append(t[1] if i % 2 == 0 else t[0])
+    return min(ops), min(directs)
+
+
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
@@ -255,7 +297,7 @@ def kernel_phase(dev, image: int):
     with the JSON line's fields (kernel B's conv1-7 summed per mode)."""
     import torch
     import torch.nn.functional as F
-    from vqa_tpu_torch.ops import conv_hpack, conv_stage1
+    from vqa_tpu_torch.ops import conv_hpack, conv_stage1, library
 
     g = torch.Generator().manual_seed(0)
     tag = f"{image}²"
@@ -271,17 +313,25 @@ def kernel_phase(dev, image: int):
     def row(name, mode):
         return rows.setdefault((name, mode), {
             "max_abs_err": 0.0, "ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0,
-            "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None})
+            "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None,
+            "op_host_us": 0.0, "direct_host_us": 0.0, "calls": 0})
 
-    def record(name, mode, ms, lms, pms, bms, by, lib=None):
+    def record(name, mode, ms, lms, pms, bms, by, lib=None, disp=(0.0, 0.0)):
         r = row(name, mode)
         r["ms"] += ms
         r["launch_ms"] += lms
         r["plain_ms"] += pms
         r["bound_ms"] += bms
         r["bound_by"] = by
+        r["op_host_us"] += disp[0]
+        r["direct_host_us"] += disp[1]
+        r["calls"] += 1
         if lib is not None:
             r["library_ms"] = (r["library_ms"] or 0.0) + lib
+
+    def dispatch_line(disp):
+        return (f"host per call through the operator {disp[0]:.1f} us, its CUDA implementation "
+                f"called directly {disp[1]:.1f} us (dispatch {disp[0] - disp[1]:.1f} us)")
 
     def check(name, mode, label, out, ref, tol=None):
         """Bit-equal, or within the per-element bound ``tol``."""
@@ -337,13 +387,15 @@ def kernel_phase(dev, image: int):
                 continue
             ms, pms = timed_pair(k, p)
             lms = timed(lambda: conv_stage1.launch_conv0_i8(x, wf, sc, bias, **kw))
+            disp = dispatch_pair(k, lambda: library.CUDA_IMPLS["conv0_i8"](  # noqa: B023
+                x, w, sc, bias, kw.get("out_dtype", torch.float32), kw.get("s1")))
             out = k()
             bms, by = bound(nbytes(x, w, sc, bias, out) + (nbytes(s1) if "s1" in kw else 0),
                             2.0 * b * image * image * 27 * 64, INT8_OPS)
-            record("conv0_s2d_i8", label, ms, lms, pms, bms, by, ims)
+            record("conv0_s2d_i8", label, ms, lms, pms, bms, by, ims, disp)
             print(f"time conv0_s2d_i8 {tag} b{b} {label}: wrapper {ms:.4f} ms "
                   f"({100 * bms / ms:.1f}% of bound), launch {lms:.4f} ms ({100 * bms / lms:.1f}% of bound), plain "
-                  f"{pms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+                  f"{pms:.4f} ms, bound {bms:.4f} ms ({by}); {dispatch_line(disp)}", flush=True)
             del out
         del x
 
@@ -382,22 +434,25 @@ def kernel_phase(dev, image: int):
                 ms, pms = timed_pair(k, p)
                 lms = timed(lambda: conv_hpack.launch_int8_conv3x3(  # noqa: B023
                     x, wp, sc, bias, pool=pool, **kw))
+                disp = dispatch_pair(k, lambda: library.CUDA_IMPLS["int8_conv3x3"](  # noqa: B023
+                    x, w, sc, bias, pool, kw.get("s_next"), kw.get("out_dtype", torch.float32)))
                 out = k()
                 ops = 2.0 * b * hw * hw * c * o * 9
                 bms, by = bound(nbytes(x, w, sc, bias, out)
                                 + (nbytes(sn) if "s_next" in kw else 0), ops, INT8_OPS)
                 del out
-                record("conv3x3_i8", label, ms, lms, pms, bms, by, ims)
+                record("conv3x3_i8", label, ms, lms, pms, bms, by, ims, disp)
                 print(f"time conv3x3_i8 {tag} {name} b{b} {label}: wrapper {ms:.4f} ms, launch "
                       f"{lms:.4f} ms ({ops / (lms * 1e-3) / 1e12:.1f} int8 TOP/s, "
                       f"{100 * bms / lms:.1f}% of bound), plain {pms:.4f} ms, bound {bms:.4f} ms "
-                      f"({by})", flush=True)
+                      f"({by}); {dispatch_line(disp)}", flush=True)
             del x
     r = rows[("conv3x3_i8", "static")]
     print(f"time conv3x3_i8 {tag} conv1-7 static b{BATCH}: wrapper {r['ms']:.4f} ms "
           f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound), launch {r['launch_ms']:.4f} ms "
           f"({100 * r['bound_ms'] / r['launch_ms']:.1f}% of bound), plain {r['plain_ms']:.4f} ms, "
-          f"torch._int_mm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms", flush=True)
+          f"torch._int_mm {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms; "
+          f"{dispatch_line((r['op_host_us'], r['direct_host_us']))} for the 7 calls", flush=True)
 
     # kernel C: float conv0 (int8 off), bf16 (the training route at
     # --opt_lvl >= 1) and f32 (--opt_lvl 0; 3xTF32), both on the tensor
@@ -418,6 +473,7 @@ def kernel_phase(dev, image: int):
             if b == 2:
                 continue
             ms, pms = timed_pair(k, p)
+            disp = dispatch_pair(k, lambda: library.CUDA_IMPLS["conv0_f"](x, w, bias))  # noqa: B023
             w32, b32 = conv_stage1.conv0_f_operands(x, w, bias)
             wk = conv_stage1.conv0_f_kernel_weights(x, w32)
             lms = timed(lambda: conv_stage1.launch_conv0_f(x, wk, b32))
@@ -441,11 +497,11 @@ def kernel_phase(dev, image: int):
                 old = (f"; CUDA-core f32 bound of earlier slices {cc_ms:.4f} ms ({cc_by}, "
                        f"{100 * cc_ms / lms:.1f}% of it at launch)")
             del out
-            record("conv0_f", label, ms, lms, pms, bms, by, cms)
+            record("conv0_f", label, ms, lms, pms, bms, by, cms, disp)
             print(f"time conv0_f {tag} b{b} {label}: wrapper {ms:.4f} ms, launch {lms:.4f} ms, "
                   f"plain {pms:.4f} ms, F.conv2d (conv only) {cms:.4f} ms, bound {bms:.4f} ms "
                   f"({by}, {100 * bms / ms:.1f}% of bound, {100 * bms / lms:.1f}% at launch)"
-                  f"{old}", flush=True)
+                  f"{old}; {dispatch_line(disp)}", flush=True)
             del x
     return rows
 
@@ -583,6 +639,120 @@ def cross_device_phase(predictor, pairs, device="cuda"):
         raise AssertionError("VGG features differ between the card and the CPU plain path")
     if not (dp <= PROB_TOL and np.isfinite(p_gpu.numpy()).all()):
         raise AssertionError(f"probabilities differ by {dp} > {PROB_TOL}")
+
+
+def read_pairs(pairs):
+    """The request file's image paths (under WORK, as ``serve --img_dir``
+    joins them) and questions."""
+    with open(pairs) as f:
+        rows = [ln.split("\t") for ln in f.read().splitlines() if ln.strip()]
+    return [os.path.join(WORK, r[0]) for r in rows], [r[1] for r in rows]
+
+
+def exported_serve(art, vocab_file, pairs, out, device="cuda") -> int:
+    """The export phase's fresh process: load the artifact with
+    ``ExportedPredictor`` on ``device``, check that no model module (nor JAX)
+    was imported, serve the requests twice (the first pass is held to the
+    live predictor and counted; the second, warm, is timed and must repeat
+    the first bit for bit), write the probabilities to ``out``.npy and the
+    launches, load and batch seconds to ``out``.json."""
+    import numpy as np
+    from vqa_tpu_torch import _build
+    from vqa_tpu_torch.export import ExportedPredictor
+    from vqa_tpu_torch.vocab import Vocab
+
+    t0 = time.perf_counter()
+    predictor = ExportedPredictor(art, Vocab.load(vocab_file), vocab_path=vocab_file,
+                                  synthetic_images=True, device=device)
+    load_s = time.perf_counter() - t0
+    bad = sorted(m for m in sys.modules if m.startswith("vqa_tpu_torch.models")
+                 or m.split(".")[0] in ("jax", "jaxlib", "flax", "vqa_tpu"))
+    if bad:
+        raise AssertionError(f"the artifact's server imported {bad}")
+    paths, questions = read_pairs(pairs)
+    _build.reset_counts()
+    probs = predictor.predict_probs(paths, questions)
+    launches, plain = counts()
+    first_s, predictor.batch_seconds = predictor.batch_seconds, []
+    if not np.array_equal(predictor.predict_probs(paths, questions), probs):
+        raise AssertionError("the artifact's second pass differs from its first")
+    np.save(f"{out}.npy", probs)
+    with open(f"{out}.json", "w") as f:
+        json.dump({"launches": launches, "plain_on_cuda": plain, "load_seconds": load_s,
+                   "first_batch_seconds": first_s, "batch_seconds": predictor.batch_seconds,
+                   "library_loaded": "vqa_tpu_torch.ops.library" in sys.modules}, f)
+    return 0
+
+
+def export_phase(predictor, vocab_file, pairs, expect: dict, card: str,
+                 device="cuda") -> dict:
+    """Export the live ``predictor`` (calibrated when int8), serve the
+    requests from the artifact in a fresh process, and hold its
+    probabilities to the live predictor's bit for bit and its launches to
+    ``expect`` ({kernel: launches for the requests}). Export itself launches
+    nothing. Returns {path: launches}."""
+    import shutil
+
+    import numpy as np
+    from vqa_tpu_torch import _build
+    from vqa_tpu_torch.export import export_predictor
+
+    tag = f"export {predictor.model_name} b{BATCH}@{predictor.image_size}²"
+    paths, questions = read_pairs(pairs)
+    _build.reset_counts()
+    live = predictor.predict_probs(paths, questions)
+    live_launches, plain = counts()
+    predictor.batch_seconds = []         # a second, warm pass is timed
+    if not np.array_equal(predictor.predict_probs(paths, questions), live):
+        raise AssertionError(f"{tag}: the live predictor's second pass differs")
+    live_s = predictor.batch_seconds
+    art = os.path.join(WORK, f"export_{predictor.model_name}")
+    shutil.rmtree(art, ignore_errors=True)
+    _build.reset_counts()
+    t0 = time.perf_counter()
+    manifest = export_predictor(predictor, art, vocab_path=vocab_file)
+    export_s = time.perf_counter() - t0
+    export_launches, _ = counts()
+    mb = manifest["artifact_bytes"] / 1e6
+    print(f"{tag}: exported in {export_s:.2f} s, {mb:.2f} MB, platforms "
+          f"{manifest['platforms']}, operators in the program {manifest['kernels']}, "
+          f"launches while exporting {json.dumps(export_launches)}", flush=True)
+    out = os.path.join(WORK, f"exported_{predictor.model_name}")
+    child = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit(chip_smoke.exported_serve("
+         f"{art!r}, {vocab_file!r}, {pairs!r}, {out!r}, {device!r}))"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if child.returncode != 0:
+        print(child.stdout[-4000:], child.stderr[-8000:], flush=True)
+        raise AssertionError(f"{tag}: the fresh process serving the artifact exited "
+                             f"{child.returncode}")
+    got = np.load(f"{out}.npy")
+    with open(f"{out}.json") as f:
+        res = json.load(f)
+    equal = got.shape == live.shape and np.array_equal(got, live)
+    aot_s = res["batch_seconds"]
+    print(f"{tag}: a fresh process loaded the artifact in {res['load_seconds']:.2f} s (operator "
+          f"library loaded {res['library_loaded']}, no model module), answered {len(got)} "
+          f"requests, probabilities {got.shape} bit-equal to the live predictor's {equal} (max "
+          f"diff {np.abs(got - live).max() if got.shape == live.shape else 'shape'}); "
+          f"second pass, batches 2-3: exported {2 * BATCH / sum(aot_s[1:3]):.2f} QA/s, live "
+          f"{2 * BATCH / sum(live_s[1:3]):.2f} QA/s ({card}); batch seconds exported "
+          f"{[round(t, 4) for t in aot_s]} (first pass "
+          f"{[round(t, 4) for t in res['first_batch_seconds']]}), live "
+          f"{[round(t, 4) for t in live_s]}", flush=True)
+    print(f"launches path=exported model={predictor.model_name}: "
+          f"{json.dumps(res['launches'])}", flush=True)
+    want = {k.symbol: expect.get(k.symbol, 0) for k in _build.KERNELS}
+    if not equal:
+        raise AssertionError(f"{tag}: the artifact's probabilities differ from the live ones")
+    if any(export_launches.values()) or res["launches"] != want or live_launches != want \
+            or any(res["plain_on_cuda"].values()) or any(plain.values()):
+        raise AssertionError(f"{tag}: launches exported {res['launches']}, live "
+                             f"{live_launches}, while exporting {export_launches}; expected "
+                             f"{want} and none while exporting")
+    shutil.rmtree(art)
+    return {f"export {predictor.model_name}": export_launches,
+            f"exported {predictor.model_name}": res["launches"]}
 
 
 def counts():
@@ -1090,13 +1260,28 @@ def main() -> int:
     # the attention model's shapes (448²), then the baseline and bert models' (224²)
     rows = {image: kernel_phase(dev, image) for image in (IMAGE, IMAGE_224)}
     vocab_file, pairs = write_requests()
-    serve_launches = {}
+    serve_launches, export_launches = {}, {}
+    forwards = -(-N_REQUESTS // BATCH)
     for model_name in ("attention", "baseline", "bert"):
         predictor, serve_launches[model_name] = serve_phase(vocab_file, pairs, model_name)
         if model_name != "bert":
             cross_device_phase(predictor, pairs)
+        if model_name == "attention":
+            # the int8 artifact: kernel A once and B 7 times a request batch
+            export_launches.update(export_phase(
+                predictor, vocab_file, pairs,
+                {"conv0_s2d_i8": forwards, "conv3x3_i8": 7 * forwards}, card))
         del predictor
         torch.cuda.empty_cache()
+    # the f32 artifact: baseline at --opt_lvl 0, kernel C (3xTF32) once a batch
+    from vqa_tpu_torch.serve import VQAPredictor
+    from vqa_tpu_torch.vocab import Vocab
+    predictor = VQAPredictor("baseline", Vocab.load(vocab_file), batch_size=BATCH, opt_lvl=0,
+                             synthetic_images=True, device="cuda")
+    export_launches.update({f"{k} f32": v for k, v in export_phase(
+        predictor, vocab_file, pairs, {"conv0_f": forwards}, card).items()})
+    del predictor
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     train_launches = train_phase(vocab_file, card)
     print(f"train phase: {time.perf_counter() - t0:.2f} s", flush=True)
@@ -1117,7 +1302,8 @@ def main() -> int:
                 "max_abs_err": max(v["max_abs_err"] for rs in rows.values()
                                    for (name, _), v in rs.items() if name == k.symbol),
                 **{f: r[f] for f in ("ms", "launch_ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "cuda_core_bound_ms") if f in r}}
+                                     "library_ms", "cuda_core_bound_ms") if f in r},
+                "dispatch_us": (r["op_host_us"] - r["direct_host_us"]) / r["calls"]}
 
     # the JSON line's modes: kernel A's requant, kernel B's conv1-7 static
     # path summed, kernel C in bf16; every mode at 448² and at 224² on the
@@ -1128,7 +1314,8 @@ def main() -> int:
             {**kernel_fields(image, k, mode), "mode": mode}
             for k in _build.KERNELS for (name, mode) in rows[image] if name == k.symbol]),
             flush=True)
-    by_path = {**{f"serve {m}": v for m, v in serve_launches.items()}, **train_launches}
+    by_path = {**{f"serve {m}": v for m, v in serve_launches.items()}, **export_launches,
+               **train_launches}
     print("launches by path: " + json.dumps(by_path), flush=True)
     # launches: kernels A and B from the attention model's serving path,
     # kernel C from its float-route training run (each read just after its

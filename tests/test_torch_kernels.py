@@ -626,3 +626,44 @@ def test_float_conv0_route_raises_on_card(cuda):
     with pytest.raises(ValueError, match="float32/bfloat16"):
         conv_stage1.conv0_bn_relu_pool(
             torch.zeros((1, 8, 8, 3), device=cuda, dtype=torch.float16), w, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["conv0_i8", "int8_conv3x3", "conv0_f"])
+def test_kernel_operators_pass_opcheck_on_card(cuda, name):
+    """``torch.library.opcheck`` of each registered operator on CUDA tensors
+    (its CUDA implementation, which launches the kernel, against its fake),
+    and the operator's output equal to a direct launch's."""
+    from vqa_tpu_torch.ops import library
+
+    g = torch.Generator().manual_seed(12)
+    x0 = torch.randint(-127, 128, (2, 8, 10, 3), generator=g, dtype=torch.int8)
+    x1 = torch.randint(-127, 128, (2, 6, 8, 64), generator=g, dtype=torch.int8)
+    s64 = torch.rand(64, generator=g) * 1e-4 + 1e-5
+    b64 = torch.randn(64, generator=g) * 0.1
+    sn = torch.rand(64, generator=g) * 0.02 + 1e-3
+    cases = {
+        "conv0_i8": [(x0, torch.randint(-127, 128, (3, 3, 3, 64), generator=g,
+                                        dtype=torch.int8), s64, b64, torch.bfloat16, None),
+                     (x0, torch.randint(-127, 128, (3, 3, 3, 64), generator=g,
+                                        dtype=torch.int8), s64, b64, torch.float32, sn)],
+        "int8_conv3x3": [(x1, torch.randint(-127, 128, (3, 3, 64, 64), generator=g,
+                                            dtype=torch.int8), s64 / 10, b64, True, sn,
+                          torch.float32),
+                         (x1, torch.randint(-127, 128, (3, 3, 64, 64), generator=g,
+                                            dtype=torch.int8), s64 / 10, b64, False, None,
+                          torch.bfloat16)],
+        "conv0_f": [(torch.randn((2, 8, 10, 3), generator=g), torch.randn(3, 3, 3, 64) * 0.2,
+                     b64),
+                    (torch.randn((2, 8, 10, 3), generator=g).bfloat16(),
+                     torch.randn(3, 3, 3, 64) * 0.2, b64)],
+    }
+    op = library.OPS[name]
+    for args in cases[name]:
+        args = tuple(a.to(cuda) if isinstance(a, torch.Tensor) else a for a in args)
+        result = torch.library.opcheck(op, args)
+        assert set(result.values()) == {"SUCCESS"}, result
+        _build.reset_counts()
+        out = op(*args)
+        assert out.is_cuda and sum(k.launches for k in _build.KERNELS) == 1
+        assert torch.equal(out, library.CUDA_IMPLS[name](*args))

@@ -5,13 +5,17 @@ noise, as tests/test_native_decoder.py), the port's library (its own copy of
 ``jpeg_decoder.cpp``, built with g++ into ``build/vqa_tpu_torch``) decodes
 bit for bit what vqa_tpu's does, with the same status mask for a missing
 file; ``native_mp`` equals ``native``; ``auto`` falls back per image; a
-worker imports neither torch nor jax; and a failed build raises with the
-compiler's output instead of falling back.
+worker imports neither torch nor jax; a failed build raises with the
+compiler's output instead of falling back; and two loaders decoding through
+the one ``native_mp`` pool at once each get their own images (vqa_tpu's
+unguarded pool swaps them: ROADMAP.md, faults).
 """
 
+import importlib
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -157,3 +161,73 @@ def test_native_raises_when_the_build_fails(jpegs, tmp_path, monkeypatch):
     assert not os.listdir(tmp_path / "build")
     out = t_images.decode_batch(jpegs[:2], 32)
     assert np.array_equal(out, t_images.decode_batch(jpegs[:2], 32, backend="pil"))
+
+
+class _PausedReader:
+    """A worker's stdout whose first ``readline`` from the thread ``owner``
+    waits until ``release`` is set, after setting ``waiting``."""
+
+    def __init__(self, stream, owner: str, waiting, release):
+        self._stream, self._owner = stream, owner
+        self._waiting, self._release = waiting, release
+
+    def readline(self):
+        if threading.current_thread().name == self._owner and not self._release.is_set():
+            self._waiting.set()
+            self._release.wait(60)
+        return self._stream.readline()
+
+    def __getattr__(self, name):
+        return getattr(self._stream, name)
+
+
+@pytest.mark.parametrize("package", ["vqa_tpu_torch", "vqa_tpu"])
+def test_native_mp_concurrent_loaders(jpegs, package):
+    """Two loaders (train and val) decode different batches through the one
+    ``native_mp`` pool at once. Loader A has sent its requests and waits for
+    its first reply when loader B decodes. The port's lock holds B until A
+    has its replies, so each gets what ``native`` decodes. vqa_tpu's pool
+    (vqa_tpu/data/images.py:85-113, :131-150) is unguarded: B reads A's
+    replies, and A then reads B's (ROADMAP.md, faults)."""
+    if not (t_jpeg.native_available() and j_native_available()):
+        pytest.skip("the native decoder does not build on this host")
+    images = t_images if package == "vqa_tpu_torch" else importlib.import_module(
+        "vqa_tpu.data.images")
+    batches = {"A": (jpegs[:3] * 2, 96), "B": (jpegs[3:] * 2, 64)}
+    want = {k: t_images.decode_batch(p, s, backend="native", native_threads=2)
+            for k, (p, s) in batches.items()}
+    images.decode_batch(jpegs[:2], 32, backend="native_mp", native_threads=2)  # the pool
+    waiting, release = threading.Event(), threading.Event()
+    for proc in images._MP_POOL.procs:
+        proc.stdout = _PausedReader(proc.stdout, "A", waiting, release)
+    got = {}
+
+    def decode(name):
+        paths, size = batches[name]
+        got[name] = images.decode_batch(paths, size, backend="native_mp", native_threads=2)
+
+    threads = {k: threading.Thread(target=decode, args=(k,), name=k) for k in batches}
+    try:
+        threads["A"].start()
+        assert waiting.wait(60)
+        threads["B"].start()
+        threads["B"].join(2)
+        b_waited = threads["B"].is_alive()
+    finally:
+        release.set()
+        for t in threads.values():
+            t.join(60)
+        assert not any(t.is_alive() for t in threads.values())
+        if package == "vqa_tpu_torch":
+            t_images._close_mp_pool()
+        else:
+            images._MP_POOL.terminate()
+            images._MP_POOL = None
+    if package == "vqa_tpu_torch":
+        assert b_waited
+        assert {k: v.tobytes() for k, v in got.items()} == \
+            {k: v.tobytes() for k, v in want.items()}
+    else:
+        assert not b_waited
+        assert got["B"].tobytes() == want["A"].tobytes()        # B answered with A's images
+        assert got["A"].tobytes() == want["B"].tobytes()

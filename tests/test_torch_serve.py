@@ -150,12 +150,44 @@ def test_calib_resolution_order(setup, tmp_path):
 
 
 def test_unported_entry_points_raise(setup, tmp_path):
+    """What the port does not take raises: a flax ``.ckpt`` that vqa_tpu
+    wrote (with checkpoint.py's message), and ``--use_pallas``, the retired
+    co-attention kernel."""
+    import flax.serialization
+
     vocab = Vocab.load(setup["vocab"])
-    with pytest.raises(NotImplementedError, match=".ckpt"):
-        VQAPredictor("attention", vocab, str(tmp_path / "model_1.ckpt"), device="cpu")
-    with pytest.raises(NotImplementedError, match="from_export"):
-        serve_main(["--model", "attention", "--vocab_file", setup["vocab"],
-                    "--from_export", str(tmp_path), "--device", "cpu"])
+    flax_ckpt = tmp_path / "model_1.ckpt"
+    flax_ckpt.write_bytes(flax.serialization.to_bytes({"step": 1, "params": {"w": np.ones(3)}}))
+    with pytest.raises(ValueError, match="vqa_tpu flax .ckpt does not load here"):
+        VQAPredictor("attention", vocab, str(flax_ckpt), device="cpu")
+    with pytest.raises(NotImplementedError, match="retired"):
+        serve_main(["--model", "attention", "--vocab_file", setup["vocab"], "--use_pallas",
+                    "--input", setup["data"], "--device", "cpu"])
+
+
+def test_native_ckpt_serves_its_model(setup, tmp_path):
+    """A ``model_<step>.ckpt`` that ``vqa_tpu_torch.main`` wrote serves (the
+    head's width read from it) exactly the probabilities of the model it holds."""
+    from vqa_tpu_torch.main import main as train_main
+
+    out = train_main(["--mode", "train", "--model", "attention", "--expt_dir", str(tmp_path),
+                      "--expt_name", "e", "--run_name", "r", "--train_img", setup["root"],
+                      "--train_file", setup["data"], "--vocab_file", setup["vocab"],
+                      "--batch_size", "2", "--num_epochs", "1", "--num_cls", "6",
+                      "--synthetic_images", "true", "--image_size", str(S), "--opt_lvl", "0",
+                      "--save_interval", "2", "--num_workers", "1", "--device", "cpu"])
+    ckpt = os.path.join(out["log_dir"], "model_2.ckpt")
+    vocab = Vocab.load(setup["vocab"])
+    kw = dict(batch_size=2, synthetic_images=True, image_size=S, opt_lvl=0, device="cpu")
+    served = VQAPredictor("attention", vocab, ckpt, **kw)
+    assert served.num_classes == 7 != vocab.num_labels
+    ref = VQAPredictor("attention", vocab, num_cls=6, **kw)
+    paths, qs = _pairs(setup)
+    seeded = ref.predict_probs(paths, qs)
+    ref.model.load_state_dict(torch.load(ckpt, weights_only=True)["model"])
+    want = ref.predict_probs(paths, qs)
+    assert not np.array_equal(seeded, want)          # the two steps moved the weights
+    np.testing.assert_array_equal(served.predict_probs(paths, qs), want)
 
 
 def test_port_imports_no_jax():
@@ -165,7 +197,9 @@ def test_port_imports_no_jax():
             "vqa_tpu_torch.main, vqa_tpu_torch.profile_train, "
             "vqa_tpu_torch.datahelper, vqa_tpu_torch.prepare_data, "
             "vqa_tpu_torch.native, vqa_tpu_torch.native.jpeg, "
-            "vqa_tpu_torch.data.feature_cache, vqa_tpu_torch.data._decode_worker; "
+            "vqa_tpu_torch.data.feature_cache, vqa_tpu_torch.data._decode_worker, "
+            "vqa_tpu_torch.export, vqa_tpu_torch.ops.library, vqa_tpu_torch.utils, "
+            "vqa_tpu_torch.utils.plotting; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vqa_tpu')]; "
             "assert not bad, bad")

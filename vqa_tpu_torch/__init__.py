@@ -7,11 +7,13 @@ layout and names (``config``, ``text``, ``vocab``, ``datahelper``,
 ``ops.{conv_stage1,conv_hpack,conv_stem,quant}``,
 ``train.{state,steps,checkpoint,calibrate,logging,profiling,preemption,scaling}``,
 ``data.{images,dataset,pipeline,feature_cache,_decode_worker}``, ``serve``,
-``main``) so each module's counterpart is easy to find. It imports
-``torch``, never ``jax`` and nothing of ``vqa_tpu``. Every TPU kernel on the
-serving and training paths of the three model families is a hand-written
-CUDA kernel for ``sm_90a`` (``csrc/``, built by nvcc at first use); each has
-a plain PyTorch version in the same module that runs for CPU tensors. The
+``export``, ``utils``, ``main``) so each module's counterpart is easy to
+find. It imports ``torch``, never ``jax`` and nothing of ``vqa_tpu``. Every
+TPU kernel on the serving and training paths of the three model families is
+a hand-written CUDA kernel for ``sm_90a`` (``csrc/``, built by nvcc at first
+use), reached through a registered PyTorch operator (``ops.library``), so
+``torch.export`` keeps it in an exported program; each has a plain PyTorch
+version in the same module that runs for CPU tensors. The
 host's JPEG decoder is C++ (``native/``, built by g++ at first use). This
 module and ``data`` import nothing heavy: the ``native_mp`` decode workers
 import ``data.images`` without torch.

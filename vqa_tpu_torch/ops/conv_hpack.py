@@ -8,11 +8,13 @@ one int8 conv of the port: it runs this pooled stage (conv1 in the
 calibration pass), the static-path conv1 after the fused stem, and conv2-7,
 which the JAX package leaves to XLA's int8 conv.
 
-:func:`int8_conv3x3` is the kernel's wrapper: a CUDA tensor launches kernel
-B (or raises), a CPU tensor runs :func:`int8_conv3x3_plain`. Pooling the
-int32 sums before the epilogue equals the JAX order (epilogue, then pool,
-or quantize, then pool on int8): every epilogue step is non-decreasing
-because the scale is positive (vqa_tpu/ops/conv_hpack.py:24-28).
+:func:`int8_conv3x3` is the kernel's wrapper. It calls the registered
+operator ``vqa_tpu_torch::int8_conv3x3`` (``ops.library``): a CUDA tensor
+launches kernel B (or raises), a CPU tensor runs :func:`int8_conv3x3_plain`.
+Pooling the int32 sums before the epilogue equals the JAX order (epilogue,
+then pool, or quantize, then pool on int8): every epilogue step is
+non-decreasing because the scale is positive
+(vqa_tpu/ops/conv_hpack.py:24-28).
 """
 
 from __future__ import annotations
@@ -56,23 +58,10 @@ def int8_conv3x3(x_q, w_q, scale, bias, *, pool: bool, s_next=None,
     [B, H', W', O] (H' = H//2 when ``pool``) in ``out_dtype`` (float32 or
     bfloat16), or int8 ``clip(rint(y / s_next))`` when ``s_next`` (float32
     [O], the next stage's per-channel scales) is given. On the card C must
-    be a multiple of 32 and O of 64.
+    be a multiple of 32 and O of 64. Calls the operator
+    ``vqa_tpu_torch::int8_conv3x3`` (``ops.library``).
     """
-    if not x_q.is_cuda:
-        return int8_conv3x3_plain(x_q, w_q, scale, bias, pool=pool,
-                                  s_next=s_next, out_dtype=out_dtype)
-    b, h, w, c = x_q.shape
-    o = w_q.shape[-1]
-    if x_q.dtype != torch.int8 or tuple(w_q.shape) != (3, 3, c, o):
-        raise ValueError(f"int8_conv3x3: need int8 x [B,H,W,C] and w [3,3,C,O], "
-                         f"got x{tuple(x_q.shape)} {x_q.dtype} w{tuple(w_q.shape)}")
-    if c % 32 or o % 64:
-        raise ValueError(f"int8_conv3x3: the CUDA kernel needs C % 32 == 0 and "
-                         f"O % 64 == 0, got C={c} O={o}")
-    if s_next is None and out_dtype not in _MODES:
-        raise ValueError(f"int8_conv3x3: out_dtype {out_dtype} not supported")
-    return launch_int8_conv3x3(x_q.contiguous(), pack_conv3x3_weights(w_q.to(x_q.device)),
-                               scale, bias, pool=pool, s_next=s_next, out_dtype=out_dtype)
+    return torch.ops.vqa_tpu_torch.int8_conv3x3(x_q, w_q, scale, bias, pool, s_next, out_dtype)
 
 
 def pack_conv3x3_weights(w_q):

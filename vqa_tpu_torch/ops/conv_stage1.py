@@ -14,11 +14,12 @@ phases gives the same sums:
   :func:`conv0_f_plain` (f32 through 3xTF32, with the weights split by
   :func:`pack_conv0_f32_weights`), and are held within :func:`conv0_f_bound`.
 
-Each wrapper launches its kernel for a CUDA tensor (or raises) and runs its
-plain version (:func:`conv0_i8_plain`, :func:`conv0_f_plain`, the same
-arithmetic as separate eager ops) for a CPU tensor. No autograd: the JAX
-package stop-gradients these kernels' inputs (vqa_tpu/models/vgg.py:
-276-277), and the port's VGG runs under ``no_grad``.
+Each wrapper calls its kernel's registered operator (``ops.library``), which
+launches the kernel for a CUDA tensor (or raises) and runs its plain version
+(:func:`conv0_i8_plain`, :func:`conv0_f_plain`, the same arithmetic as
+separate eager ops) for a CPU tensor. No autograd: the JAX package
+stop-gradients these kernels' inputs (vqa_tpu/models/vgg.py:276-277), and
+the port's VGG runs under ``no_grad``.
 """
 
 from __future__ import annotations
@@ -68,19 +69,9 @@ def conv0_i8(x_q, w_q, scale, bias, *, out_dtype=torch.float32, s1=None):
     ``scale``/``bias`` float32 [64] (``scale`` = activation x weight scale).
     Returns [B, H/2, W/2, 64] in ``out_dtype``, or, with ``s1`` (float32
     [64], conv1's per-input-channel scales), int8 ``clip(rint(y / s1))``.
+    Calls the operator ``vqa_tpu_torch::conv0_i8`` (``ops.library``).
     """
-    if not x_q.is_cuda:
-        return conv0_i8_plain(x_q, w_q, scale, bias, out_dtype=out_dtype, s1=s1)
-    b, h, w, c = x_q.shape
-    if x_q.dtype != torch.int8 or c != 3 or w_q.shape != (3, 3, 3, 64):
-        raise ValueError(f"conv0_i8: need int8 x [B,H,W,3] and w [3,3,3,64], "
-                         f"got x{tuple(x_q.shape)} {x_q.dtype} w{tuple(w_q.shape)}")
-    if h % 2 or w % 2:
-        raise ValueError(f"conv0_i8: H and W must be even, got {h}x{w}")
-    if s1 is None and out_dtype not in _MODES:
-        raise ValueError(f"conv0_i8: out_dtype {out_dtype} not supported")
-    return launch_conv0_i8(x_q.contiguous(), pack_conv0_i8_weights(w_q.to(x_q.device)),
-                           scale, bias, out_dtype=out_dtype, s1=s1)
+    return torch.ops.vqa_tpu_torch.conv0_i8(x_q, w_q, scale, bias, out_dtype, s1)
 
 
 @functools.lru_cache(maxsize=8)
@@ -169,19 +160,10 @@ def conv0_f(x, w, b):
 
     ``x`` NHWC [B, H, W, 3] float32 or bfloat16 (H, W even); ``w`` HWIO
     [3, 3, 3, 64] and ``b`` [64], BN-folded, any float dtype (rounded to
-    x.dtype). Returns [B, H/2, W/2, 64] in x.dtype.
+    x.dtype). Returns [B, H/2, W/2, 64] in x.dtype. Calls the operator
+    ``vqa_tpu_torch::conv0_f`` (``ops.library``).
     """
-    if not x.is_cuda:
-        return conv0_f_plain(x, w, b)
-    bsz, h, wd, c = x.shape
-    if x.dtype not in _MODES or c != 3 or tuple(w.shape) != (3, 3, 3, 64):
-        raise ValueError(f"conv0_f: need float32/bfloat16 x [B,H,W,3] and w [3,3,3,64], "
-                         f"got x{tuple(x.shape)} {x.dtype} w{tuple(w.shape)}")
-    if h % 2 or wd % 2:
-        raise ValueError(f"conv0_f: H and W must be even, got {h}x{wd}")
-    x = x.contiguous()
-    w32, b32 = conv0_f_operands(x, w, b)
-    return launch_conv0_f(x, conv0_f_kernel_weights(x, w32), b32)
+    return torch.ops.vqa_tpu_torch.conv0_f(x, w, b)
 
 
 def tf32_rna(v):

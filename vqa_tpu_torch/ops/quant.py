@@ -29,9 +29,13 @@ def _const(values: tuple, device: str) -> torch.Tensor:
 
 def const(values, device) -> torch.Tensor:
     """A float32 tensor of Python floats (each rounded to f32, as
-    ``jnp.asarray(tuple, float32)`` does), cached per device."""
-    return _const(tuple(values) if isinstance(values, (tuple, list)) else values,
-                  str(device))
+    ``jnp.asarray(tuple, float32)`` does), cached per device. While
+    ``torch.export`` traces, the tensor is made afresh: one made there is a
+    fake tensor, which the cache must not hand to a later eager call."""
+    values = tuple(values) if isinstance(values, (tuple, list)) else values
+    if torch.compiler.is_compiling():
+        return _const.__wrapped__(values, str(device))
+    return _const(values, str(device))
 
 
 def div(a: torch.Tensor, s) -> torch.Tensor:

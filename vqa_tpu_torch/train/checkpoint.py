@@ -20,6 +20,7 @@ backend are not read.
 from __future__ import annotations
 
 import os
+import pickle
 
 import torch
 
@@ -64,11 +65,14 @@ class AsyncCheckpointer:
 
 
 def _load(path: str) -> dict:
-    data = torch.load(path, map_location="cpu", weights_only=True)
+    message = (f"{path}: not a checkpoint of this package (a vqa_tpu flax .ckpt does "
+               f"not load here; export it with vqa_tpu's save_pth and pass the .pth)")
+    try:
+        data = torch.load(path, map_location="cpu", weights_only=True)
+    except pickle.UnpicklingError as e:       # a flax msgpack file, or no pickle at all
+        raise ValueError(message) from e
     if not (isinstance(data, dict) and data.get("format") == FORMAT):
-        raise ValueError(f"{path}: not a checkpoint of this package (a vqa_tpu flax "
-                         f".ckpt does not load here; export it with vqa_tpu's "
-                         f"save_pth and pass the .pth)")
+        raise ValueError(message)
     return data
 
 

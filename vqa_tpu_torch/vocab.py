@@ -134,3 +134,10 @@ class Vocab:
     @property
     def num_labels(self) -> int:
         return len(self.label2idx)
+
+
+def filter_samples_by_label(file_path: str, labels) -> list[str]:
+    """Keep dataset lines whose answer is in ``labels`` (utils.py:223-249)."""
+    labels = set(labels)
+    with open(file_path, "r") as f:
+        return [line for line in f if line.strip().split("\t")[2] in labels]
