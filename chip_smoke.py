@@ -115,6 +115,27 @@ without CUDA it exits non-zero before printing any result):
    bit-equal); build seconds, images/s, cache MB, QA/s over steps 3-6 and
    the peak device memory are printed beside the card.
 
+12. multi-device phase (``vqa_tpu_torch.parallel``): the attention model at
+   448² on the int8 route (b32, 6 steps) through ``--force_mesh true`` (a
+   NCCL group of one: DDP) and ``--force_mesh true --fsdp true`` (FSDP2),
+   losses bit-equal to the same command without a mesh (FSDP within
+   FSDP_RTOL) and kernels A and B launched as that run's, and ``--mode
+   test`` on the checkpoint the FSDP run gathered, on the mesh and off it
+   (equal results, A 1 and B 7 for its one batch); then
+   ``multichip.dryrun_multichip(1)``: a DP step and the tp+sp+fsdp step on the
+   degenerate (1, 1) ``("data", "model")`` mesh, losses within DRYRUN_TOL, A 3
+   and B 21 launches (calibration and two steps); then two ranks through
+   the user's entry point (``main.main`` with torchrun's environment), NCCL
+   over two cards where there are two, else gloo with both ranks on this
+   card (it prints which), 16 rows a rank, 3 steps: the ranks' trainable
+   parameters bit-equal after every step (an exact checksum), the losses
+   within TWO_RANK_RTOL of world 1, and every rank's launches summed (each
+   calibrates on the full batch); then the baseline's float route at 224²
+   (``--opt_lvl 0``, kernel C in f32, dropout live) through DDP at world 1,
+   bit-equal to the run without a mesh. QA/s, the step time over the run
+   without a mesh, the peak device memory of each rank and the phase's
+   seconds are printed beside the card.
+
 Per-path launch counts go on a line of their own. The line before the last
 is a JSON object of per-kernel launches (kernels A and B: the attention
 model's serving path; kernel C: its float-route training run), errors,
@@ -1231,6 +1252,202 @@ def cache_phase(etl: dict, native: bool, card: str, device="cuda") -> dict:
     return path_launches
 
 
+# the multi-device phase: its DP runs at world 1 must equal the run without a
+# mesh bit for bit, FSDP within FSDP_RTOL; the (1, 1)-mesh dry run's two legs
+# within DRYRUN_TOL (vqa_tpu's bound, __graft_entry__.py:192-193); two ranks'
+# losses within TWO_RANK_RTOL of world 1: the head runs in bf16 at --opt_lvl 1,
+# and 16-row products reduce in another order than 32-row ones
+# (tests/test_torch_train.py's trajectory tolerance)
+FSDP_RTOL, DRYRUN_TOL, TWO_RANK_RTOL = 1e-5, 1e-2, 2e-3
+PARAM_CHECKSUMS: list = []
+
+
+def param_checksum(model) -> int:
+    """An exact fingerprint of the trainable parameters' bits (int64 sums of
+    their 32-bit patterns under position weights, wrapping)."""
+    import torch
+    total = torch.zeros((), dtype=torch.int64, device=next(model.parameters()).device)
+    for p in model.parameters():
+        if p.requires_grad:
+            bits = p.detach().float().contiguous().view(torch.int32).reshape(-1).long()
+            w = torch.arange(1, bits.numel() + 1, device=bits.device, dtype=torch.int64) % 65521
+            total += (bits * (w + 1)).sum()
+    return int(total)
+
+
+def _checksummed_make_train_step(make):
+    """``main.make_train_step`` with a parameter checksum after every step."""
+    def wrapped(*a, **kw):
+        step = make(*a, **kw)
+
+        def train_step(state, batch):
+            out = step(state, batch)
+            PARAM_CHECKSUMS.append(param_checksum(state.model))
+            return out
+        return train_step
+    return wrapped
+
+
+def _two_rank(argv: list, share: bool) -> dict:
+    """One rank of the two-rank leg (torchrun's environment is set): the
+    user's entry point, ``vqa_tpu_torch.main.main``, with a parameter
+    checksum after every train step."""
+    if share:
+        os.environ["VQA_SHARE_DEVICE"] = "1"
+    sys.path.insert(0, ROOT)
+    from vqa_tpu_torch import main as vqa
+    vqa.make_train_step = _checksummed_make_train_step(vqa.make_train_step)
+    if os.environ["RANK"] != "0":
+        sys.stdout = open(os.devnull, "w")
+    out = vqa.main(argv)
+    out["checksums"] = list(PARAM_CHECKSUMS)
+    out.pop("feature_caches", None)
+    return out
+
+
+def multidevice_phase(vocab_file, card: str, device="cuda") -> dict:
+    """The mesh paths (vqa_tpu's --num_devices/--force_mesh/--fsdp/
+    --model_parallel/--seq_parallel) on the card; returns {path: launches}."""
+    import shutil
+
+    import torch
+    from vqa_tpu_torch import _build
+    from vqa_tpu_torch.main import main as vqa_main
+    from vqa_tpu_torch.multichip import dryrun_multichip
+
+    t_phase = time.perf_counter()
+    runs = os.path.join(WORK, "runs_mesh")
+    shutil.rmtree(runs, ignore_errors=True)
+    train6, train3 = write_dataset("mesh6", N_TRAIN, 5), write_dataset("mesh3", 3 * BATCH, 6)
+    val = write_dataset("mesh_val", BATCH, 7)
+    path_launches = {}
+
+    def args(model, mode, run, train_file, *extra):
+        return ["--mode", mode, "--model", model, "--expt_dir", runs, "--expt_name", "mesh",
+                "--run_name", f"{model}_{run}", "--train_img", WORK, "--train_file",
+                train_file, "--val_img", WORK, "--val_file", val, "--vocab_file", vocab_file,
+                "--batch_size", str(BATCH), "--num_epochs", "1", "--num_cls", str(ANSWERS),
+                "--synthetic_images", "true", "--log_interval", "2", "--save_interval", "100",
+                "--val_size", str(BATCH), "--num_workers", "8", "--device", device, *extra]
+
+    def run(path, model, mode, name, train_file, *extra):
+        _build.reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        out = vqa_main(args(model, mode, name, train_file, *extra))
+        launches = {k.symbol: k.launches for k in _build.KERNELS}
+        plain = {k.symbol: k.plain_on_cuda for k in _build.KERNELS}
+        if any(plain.values()):
+            raise AssertionError(f"{path} ran a plain conv on a CUDA tensor: {plain}")
+        path_launches[path] = launches
+        print(f"launches path={path.replace(' ', '_')}: {json.dumps(launches)}", flush=True)
+        return out, launches
+
+    def qa_s(out, first, last):
+        sync = dict(out["sync_points"])
+        return (last - first) * BATCH / (sync[last] - sync[first])
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    def int8_forwards(out, ranks=1):
+        return ranks * (1 + out["steps"]) + out["eval_batches"] * ranks
+
+    int8 = ("--opt_lvl", "1", "--int8_calib", "1")
+    # 1. world 1 through the mesh code path: DDP, then FSDP, on NCCL
+    ref, ref_l = run("mesh none attention", "attention", "train", "ref", train6, *int8)
+    dp, dp_l = run("mesh dp1 attention", "attention", "train", "dp1", train6, *int8,
+                   "--force_mesh", "true")
+    fsdp, fsdp_l = run("mesh fsdp1 attention", "attention", "train", "fsdp1", train6, *int8,
+                       "--force_mesh", "true", "--fsdp", "true", "--save_interval", "6")
+    for name, out, launches in (("dp", dp, dp_l), ("fsdp", fsdp, fsdp_l)):
+        extra_ms = 1e3 * BATCH * (1 / qa_s(out, 2, 6) - 1 / qa_s(ref, 2, 6))
+        print(f"mesh world 1 {name} attention 448² int8 ({card}): losses {out['losses']} vs "
+              f"no mesh {ref['losses']}; steps 3-6 {qa_s(out, 2, 6):.2f} QA/s (no mesh "
+              f"{qa_s(ref, 2, 6):.2f}), {extra_ms:.2f} ms a step over the run without a "
+              f"mesh; peak device memory "
+              f"{out['peak_memory_bytes'] / 2 ** 30:.2f} GiB", flush=True)
+        if launches != ref_l or launches["conv0_s2d_i8"] != int8_forwards(out):
+            raise AssertionError(f"mesh world 1 {name}: launches {launches}, the run without "
+                                 f"a mesh {ref_l}")
+    if dp["losses"] != ref["losses"]:
+        raise AssertionError("mesh world 1 DP: losses are not bit-equal to the run without "
+                             "a mesh")
+    if fsdp["steps"] != ref["steps"] or not rel(fsdp["losses"], ref["losses"]) <= FSDP_RTOL:
+        raise AssertionError(f"mesh world 1 FSDP: losses beyond {FSDP_RTOL} relative")
+    print(f"mesh world 1: DP bit-equal, FSDP max relative difference "
+          f"{rel(fsdp['losses'], ref['losses'])} (tolerance {FSDP_RTOL})", flush=True)
+    # --mode test on the checkpoint the FSDP run gathered and wrote, on the
+    # mesh and without it
+    ckpt = os.path.join(fsdp["log_dir"], "model_6.ckpt")
+    tests = [run(f"mesh test{tag} attention", "attention", "test", "fsdp1", train6, *int8,
+                 "--model_ckpt", ckpt, *flags)
+             for tag, flags in (("1", ("--force_mesh", "true")), ("", ()))]
+    results = [{k: out[k] for k in ("accuracy", "loss", "samples")} for out, _ in tests]
+    print(f"mesh world 1 --mode test on the FSDP run's model_6.ckpt: {results[0]} (no mesh "
+          f"{results[1]})", flush=True)
+    if results[0] != results[1] or results[0]["samples"] != BATCH \
+            or tests[0][1] != {"conv0_s2d_i8": 1, "conv3x3_i8": 7, "conv0_f": 0}:
+        raise AssertionError("mesh world 1 --mode test: not the run without a mesh's "
+                             "result, or not A once and B 7 times for its one batch")
+
+    # 2. the (1, 1) ('data', 'model') mesh: DP step, then tp+sp+fsdp
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, device)
+    path_launches["mesh dryrun 1x1 attention"] = dry["launches"]
+    print(f"launches path=mesh_dryrun_1x1: {json.dumps(dry['launches'])}; "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    if not abs(dry["tp_loss"] - dry["loss"]) < DRYRUN_TOL or dry["mesh_2d"] != (1, 1) \
+            or dry["launches"]["conv0_s2d_i8"] != 3 or dry["launches"]["conv3x3_i8"] != 21:
+        raise AssertionError(f"dryrun_multichip(1): {dry}")
+
+    # 3. two ranks: NCCL over two cards, or gloo with both ranks on this one
+    two_cards = torch.cuda.device_count() >= 2
+    how = "NCCL, two cards" if two_cards else "gloo, both ranks on one card"
+    ref3, _ = run("mesh none3 attention", "attention", "train", "ref3", train3, *int8,
+                  "--log_interval", "1")
+    from vqa_tpu_torch.parallel.distributed import spawn
+    argv = args("attention", "train", "dp2", train3, *int8, "--log_interval", "1")
+    t0 = time.perf_counter()
+    outs = spawn(_two_rank, 2, (argv, not two_cards))
+    launches = {k: outs[0]["launches"][k] + outs[1]["launches"][k] for k in outs[0]["launches"]}
+    path_launches["mesh dp2 attention"] = launches
+    print(f"launches path=mesh_dp2 (summed over the 2 ranks): {json.dumps(launches)}",
+          flush=True)
+    print(f"mesh two ranks ({how}; {card}): losses {outs[0]['losses']} vs world 1 "
+          f"{ref3['losses']}, max relative difference {rel(outs[0]['losses'], ref3['losses'])} "
+          f"(tolerance {TWO_RANK_RTOL}); parameter checksums per step rank 0 "
+          f"{outs[0]['checksums']} rank 1 {outs[1]['checksums']}; steps 2-3 "
+          f"{qa_s(outs[0], 1, 3):.2f} QA/s (world 1 {qa_s(ref3, 1, 3):.2f}); peak device "
+          f"memory per rank {[round(outs[i]['peak_memory_bytes'] / 2 ** 30, 2) for i in (0, 1)]}"
+          f" GiB; {time.perf_counter() - t0:.2f} s", flush=True)
+    if outs[0]["checksums"] != outs[1]["checksums"] or len(outs[0]["checksums"]) != 3:
+        raise AssertionError("two ranks: the trainable parameters differ after a step")
+    if not rel(outs[0]["losses"], ref3["losses"]) <= TWO_RANK_RTOL:
+        raise AssertionError(f"two ranks: losses beyond {TWO_RANK_RTOL} of world 1")
+    # every rank calibrates on the full batch and runs its 16 rows a forward
+    need = int8_forwards(outs[0], ranks=2)
+    if launches["conv0_s2d_i8"] != need or launches["conv3x3_i8"] != 7 * need \
+            or launches["conv0_f"]:
+        raise AssertionError(f"two ranks: launches {launches}, need A {need}, B {7 * need}")
+
+    # 4. the float route (kernel C in f32, dropout live) through DDP at world 1
+    f32 = ("--opt_lvl", "0", "--log_interval", "1")
+    bref, bref_l = run("mesh none baseline", "baseline", "train", "ref", train3, *f32)
+    bdp, bdp_l = run("mesh dp1 baseline", "baseline", "train", "dp1", train3, *f32,
+                     "--force_mesh", "true")
+    print(f"mesh world 1 dp baseline 224² f32 ({card}): losses {bdp['losses']} vs no mesh "
+          f"{bref['losses']}; steps 2-3 {qa_s(bdp, 1, 3):.2f} QA/s (no mesh "
+          f"{qa_s(bref, 1, 3):.2f}); peak device memory "
+          f"{bdp['peak_memory_bytes'] / 2 ** 30:.2f} GiB", flush=True)
+    if bdp["losses"] != bref["losses"] or bdp_l != bref_l \
+            or bdp_l["conv0_f"] != bdp["steps"] + bdp["eval_batches"]:
+        raise AssertionError("mesh world 1 DP baseline: not bit-equal to the run without a "
+                             "mesh, or kernel C not once a forward")
+    shutil.rmtree(runs, ignore_errors=True)
+    print(f"multi-device phase: {time.perf_counter() - t_phase:.2f} s ({card})", flush=True)
+    return path_launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1285,6 +1502,7 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches = train_phase(vocab_file, card)
     print(f"train phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    train_launches.update(multidevice_phase(vocab_file, card))
     etl = etl_phase(card)
     native, reason = native_decoder_buildable()
     if not native:

@@ -199,7 +199,9 @@ def test_port_imports_no_jax():
             "vqa_tpu_torch.native, vqa_tpu_torch.native.jpeg, "
             "vqa_tpu_torch.data.feature_cache, vqa_tpu_torch.data._decode_worker, "
             "vqa_tpu_torch.export, vqa_tpu_torch.ops.library, vqa_tpu_torch.utils, "
-            "vqa_tpu_torch.utils.plotting; "
+            "vqa_tpu_torch.utils.plotting, vqa_tpu_torch.parallel.distributed, "
+            "vqa_tpu_torch.parallel.mesh, vqa_tpu_torch.parallel.sharding, "
+            "vqa_tpu_torch.multichip; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vqa_tpu')]; "
             "assert not bad, bad")

@@ -6,8 +6,10 @@ layout and names (``config``, ``text``, ``vocab``, ``datahelper``,
 ``models.{base,layers,vgg,coattention,baseline,bert,convert}``,
 ``ops.{conv_stage1,conv_hpack,conv_stem,quant}``,
 ``train.{state,steps,checkpoint,calibrate,logging,profiling,preemption,scaling}``,
-``data.{images,dataset,pipeline,feature_cache,_decode_worker}``, ``serve``,
-``export``, ``utils``, ``main``) so each module's counterpart is easy to
+``data.{images,dataset,pipeline,feature_cache,_decode_worker}``,
+``parallel.{distributed,mesh,sharding}``, ``serve``, ``export``, ``utils``,
+``main``, and ``multichip`` for ``__graft_entry__.dryrun_multichip``) so
+each module's counterpart is easy to
 find. It imports ``torch``, never ``jax`` and nothing of ``vqa_tpu``. Every
 TPU kernel on the serving and training paths of the three model families is
 a hand-written CUDA kernel for ``sm_90a`` (``csrc/``, built by nvcc at first

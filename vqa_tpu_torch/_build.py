@@ -5,7 +5,9 @@ Each ``csrc/*.cu`` file exports a plain C launcher that returns
 ``build/vqa_tpu_torch/<name>.<hash>.so`` (``-gencode arch=compute_90a,
 code=sm_90a``, ``-fmad=false``), keyed by the source's content hash, so an
 edited source never loads a stale library. :func:`build_all` starts one nvcc
-per source at once. Nothing here runs when the module is imported.
+per source at once; a file lock beside each library keeps processes that
+start together (the ranks of one host) from building it twice. Nothing
+here runs when the module is imported.
 
 A :class:`CudaKernel` holds one launcher and its ``launches`` count: the count
 goes up by one for each launch that CUDA accepted, and nowhere else.
@@ -14,7 +16,9 @@ A failed build or a refused launch raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -43,6 +47,19 @@ def _lib_path(source: str) -> str:
     with open(os.path.join(CSRC, source), "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}.{digest}.so")
+
+
+@contextlib.contextmanager
+def _file_lock(lib_path: str):
+    """An exclusive lock beside a library, held while it is built: processes
+    that start together (the ranks of one host) build each source once."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(f"{lib_path}.lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
 
 
 class CudaKernel:
@@ -90,7 +107,8 @@ class CudaKernel:
     def _load(self):
         with self._lock:
             if self._fn is None:
-                self.finish_build(self.start_build())
+                with _file_lock(_lib_path(self.source)):   # one nvcc across processes
+                    self.finish_build(self.start_build())
                 lib = ctypes.CDLL(_lib_path(self.source))
                 fn = getattr(lib, self.symbol)
                 fn.argtypes = self.argtypes
@@ -135,9 +153,12 @@ KERNELS = (CONV0_S2D_I8, CONV3X3_I8, CONV0_F)
 
 def build_all() -> None:
     """Compile every kernel source at once (one nvcc each) and load them."""
-    procs = [(k, k.start_build()) for k in KERNELS]
-    for k, proc in procs:
-        k.finish_build(proc)
+    with contextlib.ExitStack() as locks:
+        for k in KERNELS:
+            locks.enter_context(_file_lock(_lib_path(k.source)))
+        procs = [(k, k.start_build()) for k in KERNELS]
+        for k, proc in procs:
+            k.finish_build(proc)
     for k in KERNELS:
         k._load()
 

@@ -15,8 +15,9 @@ order is vqa_tpu's, a pure function of ``(seed, epoch)``, so a run resumed
 with ``set_epoch(epoch, skip_batches)`` sees the batches an uninterrupted
 run would. With ``pin_memory`` the producer thread also copies each image
 (or feature) batch into pinned host memory, so the H2D copy in
-:func:`device_batch` is an asynchronous DMA. Sharding over hosts is not
-ported yet and raises.
+:func:`device_batch` is an asynchronous DMA. ``shard_index`` / ``num_shards`` give each host
+(node) a disjoint, equal share of every epoch's order, as vqa_tpu's do, and
+``rows`` a rank its block of the host's batches.
 
 :func:`preprocess_images` (vqa_tpu/data/pipeline.py:37-58), on the device:
 uint8 [B, H, W, 3] -> /255 -> ImageNet normalize, on the target device. A
@@ -45,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.quant import const
+from ..parallel.mesh import row_block
 from .dataset import VQASamples
 from .images import all_jpeg, decode_batch
 
@@ -104,8 +106,10 @@ class DataLoader:
     ques_len: int32 [B], label: int32 [B]}``; ``image`` is a numpy array,
     or a pinned uint8 tensor with ``pin_memory``, and the rest are numpy.
     In feature mode ``image`` is a tensor of cached feature rows in the
-    cache's dtype. Same arguments as vqa_tpu's loader; ``num_shards > 1``
-    raises (not ported).
+    cache's dtype. Same arguments as vqa_tpu's loader, and ``rows = (index,
+    count)``: each batch keeps only block ``index`` of ``count`` equal
+    blocks of its rows, a rank's share of its host's batch (nothing else is
+    decoded).
     """
 
     def __init__(self, samples: VQASamples, batch_size: int, *, host_size: int,
@@ -113,11 +117,15 @@ class DataLoader:
                  seed: int = 0, synthetic_images: bool = False, prefetch: int = 2,
                  shard_index: int = 0, num_shards: int = 1,
                  decode_backend: str = "auto", feature_cache=None,
-                 pin_memory: bool = False):
-        if num_shards != 1 or shard_index != 0:
-            raise NotImplementedError("sharding the data over hosts is not "
-                                      "ported yet (ROADMAP.md queue 1 item 8)")
+                 pin_memory: bool = False, rows: tuple[int, int] = (0, 1)):
+        if not 0 <= shard_index < num_shards:
+            raise ValueError(f"shard_index {shard_index} not in [0, {num_shards})")
+        if not 0 <= rows[0] < rows[1]:
+            raise ValueError(f"rows {rows}: need 0 <= index < count")
         self.samples = samples
+        self.shard_index = shard_index
+        self.num_shards = num_shards
+        self.rows = rows
         self.feature_cache = feature_cache
         if feature_cache is not None:
             self._feature_rows = np.fromiter(
@@ -145,7 +153,7 @@ class DataLoader:
                 and decode_backend not in ("native", "native_mp")) else None
 
     def __len__(self) -> int:
-        n = len(self.samples)
+        n = len(self.samples) // self.num_shards
         if self.drop_last:
             return n // self.batch_size
         return -(-n // self.batch_size)
@@ -162,9 +170,13 @@ class DataLoader:
         if self.shuffle:
             rng = np.random.default_rng((self.seed, self._epoch))
             rng.shuffle(order)
-        return order
+        # this host's shard: truncated to a multiple of num_shards first, so
+        # every host takes the same number of steps (vqa_tpu/data/pipeline.py:144-149)
+        n_even = (len(order) // self.num_shards) * self.num_shards
+        return order[:n_even][self.shard_index::self.num_shards]
 
     def _make_batch(self, idx: np.ndarray) -> dict:
+        idx = idx[row_block(len(idx), *self.rows)]    # this rank's block
         if self.feature_cache is not None:
             images = self.feature_cache.gather(self._feature_rows[idx])
             if self.pin_memory:

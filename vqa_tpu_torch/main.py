@@ -36,9 +36,17 @@ true`` and ``--bn_mode batch`` exit). ``--decode_backend`` takes vqa_tpu's
 engines: ``auto`` (a process pool of native decoders for real data with
 ``--num_workers > 1``), ``native``, ``native_mp`` and ``pil``.
 
-Not ported yet, each raising with its ROADMAP.md queue item:
-``--num_devices > 1``, ``--model_parallel``, ``--fsdp``, ``--seq_parallel``,
-``--force_mesh`` and ``--ckpt_backend orbax``; export is not ported either.
+Several devices (``parallel``): ``--num_devices N`` spawns N local ranks,
+one device each (under ``torchrun`` the launcher's world is the mesh, and
+``--force_mesh true`` runs the mesh code path in a process group of one),
+with vqa_tpu's start-up checks and messages. Every rank trains on its block
+of each batch: data parallel (``DistributedDataParallel``), or with
+``--model_parallel m`` / ``--fsdp true`` the trainable head placed on the
+``("data", "model")`` mesh (TP and FSDP2, ``parallel.sharding``) and, with
+``--seq_parallel true``, the co-attention's image sequence sharded over
+``model``. Rank 0 logs and writes the flat ``model_<step>.ckpt`` (the full
+state, which resumes at any world size); ``--ckpt_backend orbax`` writes a
+sharded ``torch.distributed.checkpoint`` directory ``model_<step>.orbax``.
 ``--gpu_id`` is accepted and ignored, as in vqa_tpu.
 """
 
@@ -47,16 +55,19 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from .config import (build_model, compute_dtype_for_opt_lvl, int_min_two,
+from .config import (MODEL_CONFIGS, build_model, compute_dtype_for_opt_lvl, int_min_two,
                      resolve_device, str2bool)
 from .data.dataset import VQASamples
 from .data.pipeline import DataLoader, device_batch, device_prefetch, make_image_preprocessor
 from .models.vgg import VGG11HeadEncoder
+from .parallel import distributed
 from .train.checkpoint import (AsyncCheckpointer, latest_checkpoint, load_any,
                                load_params_only)
 from .train.logging import ETAEstimator, make_summary_writer, print_and_log, setup_logs_file
@@ -109,17 +120,26 @@ def build_parser() -> argparse.ArgumentParser:
         help="host decode engine: auto = native_mp for real data with --num_workers > 1 "
              "when the native decoder builds, else native for JPEGs, else pil")
     # vqa_tpu extensions
-    add("--num_devices", type=int, default=1, help="data-parallel devices (not ported yet)")
-    add("--model_parallel", type=int, default=1, help="tensor-parallel ways (not ported yet)")
-    add("--fsdp", type=str2bool, default="false", help="not ported yet")
+    add("--num_devices", type=int, default=1,
+        help="devices (one process each): > 1 spawns the local ranks "
+             "(under torchrun the launcher's world is the mesh)")
+    add("--model_parallel", type=int, default=1,
+        help="tensor-parallel ways: a (N // m, m) ('data', 'model') mesh")
+    add("--fsdp", type=str2bool, default="false",
+        help="shard the trainable parameters and Adam's moments over the data axis (FSDP2)")
     add("--ckpt_backend", type=str, default="flax", choices=["flax", "orbax"],
-        help="'flax' = one model_<step>.ckpt file (here a torch.save); orbax: not ported yet")
+        help="'flax' = one model_<step>.ckpt file (a torch.save of the full state, "
+             "rank 0); 'orbax' = a sharded torch.distributed.checkpoint directory "
+             "model_<step>.orbax, each rank writing its shards")
     add("--grad_accum", type=int, default=1,
         help="microbatches per step, one optimizer update (must divide --batch_size)")
-    add("--seq_parallel", type=str2bool, default="false", help="not ported yet")
+    add("--seq_parallel", type=str2bool, default="false",
+        help="shard the image feature sequence over the model axis in the co-attention "
+             "(attention; needs --model_parallel > 1)")
     add("--preempt_save", type=str2bool, default="true",
         help="on SIGTERM, save a checkpoint at the next step boundary and exit")
-    add("--force_mesh", type=str2bool, default="false", help="not ported yet")
+    add("--force_mesh", type=str2bool, default="false",
+        help="the mesh code path even at --num_devices 1 (a process group of one)")
     add("--use_pallas", type=str2bool, default="false",
         help="retired in vqa_tpu (PARITY.md M8); 'true' fails")
     add("--synthetic_images", type=str2bool, default="false",
@@ -159,20 +179,34 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _reject_unported(args) -> None:
-    """Flags whose vqa_tpu behaviour the port does not have yet raise."""
-    checks = [
-        (args.num_devices > 1, "--num_devices > 1", 8),
-        (args.model_parallel > 1, "--model_parallel", 8),
-        (args.fsdp, "--fsdp", 8),
-        (args.seq_parallel, "--seq_parallel", 8),
-        (args.force_mesh, "--force_mesh", 8),
-        (args.ckpt_backend == "orbax", "--ckpt_backend orbax", 8),
-    ]
-    for bad, flag, item in checks:
-        if bad:
-            raise NotImplementedError(f"{flag} is not ported yet (ROADMAP.md queue 1 "
-                                      f"item {item})")
+def mesh_requested(args) -> bool:
+    """A device mesh runs: several devices, ``--force_mesh``, or a launcher's
+    world of more than one process."""
+    return (args.num_devices > 1 or args.force_mesh
+            or (distributed.launched() and int(os.environ["WORLD_SIZE"]) > 1))
+
+
+def check_mesh_flags(args) -> None:
+    """vqa_tpu's start-up checks of the mesh flags (vqa_tpu/main.py:432-450),
+    with its messages."""
+    on_mesh = mesh_requested(args)
+    if not on_mesh and (args.model_parallel > 1 or args.fsdp):
+        raise SystemExit("--model_parallel/--fsdp need a device mesh: set "
+                         "--num_devices > 1 (or --force_mesh true)")
+    if args.seq_parallel:
+        if not on_mesh or args.model_parallel <= 1:
+            raise SystemExit("--seq_parallel requires --model_parallel > 1")
+        if args.model != "attention":
+            raise SystemExit(f"--seq_parallel is attention-family only "
+                             f"(got --model {args.model})")
+        image_size = args.image_size or MODEL_CONFIGS[args.model].image_size
+        seq_len_s = (image_size // 32) ** 2  # VGG downsamples 32x
+        if seq_len_s % args.model_parallel:
+            raise SystemExit(
+                f"--seq_parallel: the image feature sequence S={seq_len_s} "
+                f"(image_size {image_size}) is not divisible by "
+                f"--model_parallel {args.model_parallel}; the constraint "
+                f"would silently no-op")
 
 
 def _resolve_ckpt(model_ckpt: str, log_dir: str) -> str:
@@ -237,6 +271,21 @@ def _make_feature_encoder(model_name: str, model, preprocess):
     return encode, variables_fingerprint(vgg.state_dict()), boundary
 
 
+def _pad_to_multiple(batch: dict, multiple: int):
+    """A host batch's rows padded to a multiple by repeating the last row
+    (vqa_tpu/main.py:289-306); returns ``(padded, n_valid)``."""
+    n = len(batch["label"])
+    pad = (-n) % multiple
+    if pad == 0:
+        return batch, n
+
+    def p(a):
+        a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+        return np.concatenate([a, np.repeat(a[-1:], pad, axis=0)])
+
+    return {k: p(v) for k, v in batch.items()}, n
+
+
 def _host_images(loader, n: int):
     """The first ``n`` image batches of ``loader``, streamed."""
     it = iter(loader)
@@ -251,13 +300,71 @@ def _host_images(loader, n: int):
 
 
 def main(argv=None):
-    """Run ``--mode train`` or ``--mode test``; returns that mode's summary dict."""
+    """Run ``--mode train`` or ``--mode test``; returns that mode's summary
+    dict (rank 0's, with every rank's in ``ranks``, when it spawned ranks)."""
     parser = build_parser()
     args = parser.parse_args(argv)
-    _reject_unported(args)
-    device = resolve_device(args.device)
+    check_mesh_flags(args)
+    if args.num_devices > 1 and not distributed.launched() and not dist.is_initialized():
+        return _spawn_ranks(args, list(sys.argv[1:] if argv is None else argv))
+    return _run(args)
+
+
+def _spawn_ranks(args, argv: list) -> dict:
+    """``--num_devices N`` on one host: N local ranks, one device each; the
+    kernels are built here first, so the ranks only load them."""
+    if torch.device(args.device).type == "cuda":
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if have == 0:
+            resolve_device(args.device)      # raises: no card
+        if args.num_devices > have and not distributed.share_device():
+            raise ValueError(f"requested {args.num_devices} devices, have {have}")
+        from . import _build
+        _build.build_all()
+    try:
+        ranks = distributed.spawn(_rank_main, args.num_devices, (argv,))
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from e
+    return {**ranks[0], "ranks": ranks}
+
+
+def _rank_main(argv: list) -> dict:
+    """One spawned rank: :func:`main` under torchrun's environment; rank 0
+    logs. Returns its summary, with the feature caches as paths."""
+    if os.environ["RANK"] != "0":
+        sys.stdout = open(os.devnull, "w")
+    summary = main(argv)
+    summary["feature_caches"] = [c.cache_dir for c in summary.get("feature_caches", [])]
+    return summary
+
+
+def _run(args) -> dict:
+    device_type = torch.device(args.device).type
+    owns_group = False
+    if mesh_requested(args) and not dist.is_initialized():
+        resolve_device(args.device)
+        if distributed.launched():
+            distributed.initialize_distributed(device_type)
+        else:   # --force_mesh on one device: a group of one
+            distributed.initialize_distributed(
+                device_type, init_method=f"tcp://localhost:{distributed.free_port()}",
+                world=1, rank_=0)
+        owns_group = True
+    try:
+        return _run_in_group(args)
+    finally:
+        if owns_group:
+            distributed.shutdown()
+
+
+def _run_in_group(args) -> dict:
+    device = (distributed.device_for(args.device) if dist.is_initialized()
+              else resolve_device(args.device))
+    main_rank = distributed.is_main()
     print(f"Selected Device(s): "
-          f"{torch.cuda.get_device_name(device) if device.type == 'cuda' else device}")
+          f"{torch.cuda.get_device_name(device) if device.type == 'cuda' else device}"
+          + (f" (rank {distributed.rank()} of {distributed.world_size()})"
+             if dist.is_initialized() else ""))
 
     vocab = Vocab.load(args.vocab_file)
     print(f"Vocabulary loaded from {args.vocab_file}")
@@ -282,40 +389,81 @@ def main(argv=None):
     preprocess = make_image_preprocessor(image_size, compute_dtype_for_opt_lvl(args.opt_lvl),
                                          device)
     log_dir = os.path.join(args.expt_dir, args.expt_name, args.run_name)
-    os.makedirs(log_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(log_dir, exist_ok=True)
 
-    def make_loader(samples, shuffle=True, drop_last=True, feature_cache=None):
+    mesh = None
+    if mesh_requested(args):
+        from .parallel.mesh import get_mesh
+        mesh = get_mesh(None if args.num_devices == 1 else args.num_devices,
+                        model_parallel=args.model_parallel, device_type=device.type)
+        if args.seq_parallel:
+            model.act_mesh = mesh
+        if main_rank:
+            print(f"device mesh: {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  + (" (tensor parallel)" if args.model_parallel > 1 else "")
+                  + (" (FSDP)" if args.fsdp else ""))
+        dist.barrier()                   # rank 0 made the run directory
+    shard_index, num_shards = distributed.host_shard()
+
+    def make_loader(samples, shuffle=True, drop_last=True, feature_cache=None,
+                    rows=(0, 1), sharded=True):
         return DataLoader(samples, args.batch_size, host_size=host_size, shuffle=shuffle,
                           drop_last=drop_last, num_workers=args.num_workers, seed=args.seed,
                           synthetic_images=args.synthetic_images,
                           decode_backend=args.decode_backend, feature_cache=feature_cache,
-                          pin_memory=device.type == "cuda")
+                          pin_memory=device.type == "cuda", rows=rows,
+                          shard_index=shard_index if sharded else 0,
+                          num_shards=num_shards if sharded else 1)
 
     def samples_of(data_file, img_dir):
         return VQASamples(data_file, img_dir, vocab.word2idx, vocab.label2idx,
                           vocab.max_seq_length)
 
     if args.mode == "train":
-        return train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device,
-                     image_size, host_size)
-    return test(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device)
+        summary = train(args, model, vocab, preprocess, make_loader, samples_of, log_dir,
+                        device, image_size, host_size, mesh)
+    else:
+        summary = test(args, model, vocab, preprocess, make_loader, samples_of, log_dir,
+                       device, mesh)
+    from . import _build
+    summary["launches"] = {k.symbol: k.launches for k in _build.KERNELS}
+    if device.type == "cuda":
+        summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
+    return summary
 
 
 def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device,
-          image_size: int, host_size: int) -> dict:
+          image_size: int, host_size: int, mesh=None) -> dict:
     """The training loop of vqa_tpu/main.py:478-773. Returns a summary:
     per-step losses, host-clock train seconds at each sync point (with
     validation and checkpoint time taken out), eval batches run, the train
-    loader's decode engine and the feature caches opened (train, val)."""
+    loader's decode engine and the feature caches opened (train, val).
+
+    On a mesh every rank runs this loop on its rows: the calibration on the
+    same full batches everywhere (rank 0 writes the sidecar), the feature
+    cache built by rank 0 and read by all, the state replicated (DDP) or
+    sharded (``--model_parallel``, ``--fsdp``), losses and metrics global;
+    rank 0 logs and writes the flat checkpoints."""
     if args.cache_features and args.vgg_train:
         raise SystemExit("--cache_features requires a frozen VGG (--vgg_train false)")
     if args.cache_features and args.bn_mode == "batch":
         raise SystemExit("--cache_features requires running-stats BN: batch-stats "
                          "features depend on the batch and cannot be cached "
                          "(--bn_mode auto|running)")
+    main_rank = distributed.is_main()
+    model_sharded = mesh is not None and (args.model_parallel > 1 or args.fsdp)
+    if model_sharded and distributed.host_shard()[1] > 1 and args.ckpt_backend == "flax":
+        raise SystemExit("multi-host TP/FSDP states are not fully "
+                         "addressable: the flax checkpoint backend "
+                         "cannot gather them — use --ckpt_backend orbax")
     print(f"Training Log Directory: {log_dir}\n")
-    writer = make_summary_writer(log_dir)
-    log_file = setup_logs_file(vars(args), log_dir)
+    if main_rank:
+        writer = make_summary_writer(log_dir)
+        log_file = setup_logs_file(vars(args), log_dir)
+    else:                   # rank 0 logs and writes TensorBoard
+        from .train.logging import _NullWriter
+        writer, log_file = _NullWriter(), open(os.devnull, "w")
 
     train_dataset = samples_of(args.train_file, args.train_img)
     print(f"Question Vocabulary Size: {vocab.size} \n\n")
@@ -335,11 +483,13 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
                       log_file)
 
     state = create_train_state(model, args.learning_rate, seed=args.seed)
+    ckpt_path = None
     if args.model_ckpt:
         ckpt_path = _resolve_ckpt(args.model_ckpt, log_dir)
-        state = load_any(ckpt_path, state)
-        print_and_log(f"Model successfully loaded from {ckpt_path}"
-                      "\nResuming Training...", log_file)
+        if not ckpt_path.endswith(".orbax"):    # a sharded directory loads once placed
+            state = load_any(ckpt_path, state)
+            print_and_log(f"Model successfully loaded from {ckpt_path}"
+                          "\nResuming Training...", log_file)
 
     # int8 static scales, after the weights load (they depend on them): the
     # run's int8_calib.json when present, else --int8_calib batches of the
@@ -352,9 +502,13 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
             print_and_log("int8 calibration: reusing "
                           f"{os.path.join(log_dir, 'int8_calib.json')}", log_file)
         else:
-            calib_loader = make_loader(train_dataset)
+            # every rank calibrates on the same full batches of the
+            # unsharded epoch-0 order: the same scales everywhere, bit for
+            # bit, and the world-1 run's
+            calib_loader = make_loader(train_dataset, sharded=False)
             calibrate_model(args.model, model, preprocess,
-                            _host_images(calib_loader, args.int8_calib), log_dir=log_dir,
+                            _host_images(calib_loader, args.int8_calib),
+                            log_dir=log_dir if main_rank else None,
                             log=lambda s: print_and_log(s, log_file))
             calib_loader.close()
 
@@ -375,13 +529,33 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
                 synthetic_images=args.synthetic_images, decode_backend=args.decode_backend,
                 log=lambda s: print_and_log(s, log_file))
 
-        train_cache = build_cache(train_dataset)
-        if val_dataset is not None:
-            val_cache = build_cache(val_dataset)
+        def build_caches():
+            return (build_cache(train_dataset),
+                    build_cache(val_dataset) if val_dataset is not None else None)
 
-    train_loader = make_loader(train_dataset, feature_cache=train_cache)
+        if mesh is None:
+            train_cache, val_cache = build_caches()
+        else:               # rank 0 builds; the others then open what it wrote
+            if main_rank:
+                train_cache, val_cache = build_caches()
+            dist.barrier()
+            if not main_rank:
+                train_cache, val_cache = build_caches()
+
+    rows = (0, 1)
+    if mesh is not None:
+        from .parallel.mesh import local_rows
+        from .train.state import place_on_mesh
+        rows = local_rows(mesh, distributed.host_shard()[1])
+        state = place_on_mesh(state, mesh, device, tp=args.model_parallel > 1,
+                              fsdp=args.fsdp)
+    if ckpt_path is not None and ckpt_path.endswith(".orbax"):
+        state = load_any(ckpt_path, state)
+        print_and_log(f"Model successfully loaded from {ckpt_path}"
+                      "\nResuming Training...", log_file)
+    train_loader = make_loader(train_dataset, feature_cache=train_cache, rows=rows)
     if val_dataset is not None:
-        val_loader = make_loader(val_dataset, feature_cache=val_cache)
+        val_loader = make_loader(val_dataset, feature_cache=val_cache, rows=rows)
     if args.grad_accum > 1 and args.batch_size % args.grad_accum:
         raise SystemExit(f"--grad_accum {args.grad_accum} must divide "
                          f"--batch_size {args.batch_size}")
@@ -399,8 +573,8 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
                            skip_batches=curr_step % max(steps_per_epoch, 1))
     eta = ETAEstimator(steps_per_epoch, args.num_epochs, start_step=curr_step)
     timer = SyncedRateTracker(args.batch_size)
-    checkpointer = AsyncCheckpointer()
-    profile = ProfileWindow(log_dir, args.profile_steps)
+    checkpointer = AsyncCheckpointer(backend=args.ckpt_backend)
+    profile = ProfileWindow(log_dir, args.profile_steps if main_rank else 0)
     guard = None
     if args.preempt_save:
         from .train.preemption import PreemptionGuard
@@ -423,7 +597,7 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
         nonlocal eval_batches
         model.eval()            # dropout off, as vqa_tpu's eval step (train=False)
         vm = compute_validation_metrics(eval_step, model, iter(val_loader), prepare_batch,
-                                        args.batch_size, size)
+                                        args.batch_size, size, mesh=mesh)
         model.train()
         eval_batches += vm["batches"]
         return vm
@@ -434,6 +608,15 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
         t0 = time.perf_counter()
         checkpointer.save(state, log_dir, step)
         excluded += time.perf_counter() - t0
+
+    def preempt_now() -> bool:
+        """The guard fired on any rank: all of them save at this step."""
+        hit = guard is not None and guard.triggered
+        if mesh is None:
+            return hit
+        flag = torch.tensor([float(hit)], device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
 
     def preemption_save():
         print_and_log(f"SIGTERM received: saving checkpoint at step {curr_step} to "
@@ -478,14 +661,14 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
                     save(curr_step + 1)
 
                 curr_step += 1
-                if guard is not None and guard.triggered:
+                if preempt_now():
                     preemption_save()
                     preempted = True
                     batches.close()     # stops the loader's producer thread
                     break
             if preempted:
                 break
-            if guard is not None and guard.triggered:
+            if preempt_now():
                 preemption_save()
                 preempted = True
                 break
@@ -523,8 +706,15 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
             "feature_caches": [c for c in (train_cache, val_cache) if c is not None]}
 
 
-def test(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device) -> dict:
-    """Evaluate ``--model_ckpt`` on ``--val_file`` (vqa_tpu/main.py:776-895)."""
+def test(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device,
+         mesh=None) -> dict:
+    """Evaluate ``--model_ckpt`` on ``--val_file`` (vqa_tpu/main.py:776-895).
+
+    On a mesh the weights are replicated and every rank evaluates its block
+    of each batch; the last partial batch is padded to a multiple of the
+    ``data`` axis (vqa_tpu's ``_pad_to_multiple``) and only its valid rows
+    count. Correct counts and loss sums are all-reduced over ``data``, and
+    rank 0 writes the predictions in file order."""
     if not args.val_file:
         raise SystemExit("--mode test requires --val_file")
     if args.cache_features:
@@ -557,32 +747,53 @@ def test(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devic
         # calibrate on the eval data, not persisted (the sidecar belongs to
         # the training run)
         from .train.calibrate import calibrate_model
-        calib_loader = make_loader(samples, shuffle=False, drop_last=False)
+        calib_loader = make_loader(samples, shuffle=False, drop_last=False, sharded=False)
         calibrate_model(args.model, model, preprocess,
                         _host_images(calib_loader, args.int8_calib), log_dir=None)
         calib_loader.close()
 
     eval_step = make_eval_step()
     model.eval()
+    from .parallel.mesh import DATA_AXIS, all_reduce_sum, axis_size, local_rows, row_block
+    index, count = local_rows(mesh, distributed.host_shard()[1])
+    n_data = axis_size(mesh, DATA_AXIS) if mesh is not None else 1
     num_correct = total = 0
     loss_sum = 0.0
     predictions = []
     try:
         for batch in loader:
-            m = eval_step(model, device_batch(batch, preprocess, device))
-            preds = m["pred"].cpu().numpy()
-            num_correct += int((preds == np.asarray(batch["label"])).sum())
-            loss_sum += float(m["loss_per"].double().sum())
-            total += len(preds)
+            padded, n = _pad_to_multiple(batch, n_data)
+            rows = row_block(len(padded["label"]), index, count)
+            mine = {k: v[rows] for k, v in padded.items()}
+            m = eval_step(model, device_batch(mine, preprocess, device))
+            # the rows of this block that are real samples, not padding
+            valid = max(0, min(n, rows.stop) - rows.start)
+            preds = m["pred"].cpu().numpy()[:valid]
+            num_correct += int((preds == np.asarray(mine["label"])[:valid]).sum())
+            loss_sum += float(m["loss_per"][:valid].double().sum())
+            total += valid
             if args.test_out:
-                predictions.extend(vocab.idx2label[int(p)] for p in preds)
+                predictions.append(preds)
     finally:
         loader.close()
+    if mesh is not None:
+        num_correct, loss_sum, total = all_reduce_sum([num_correct, loss_sum, total], mesh,
+                                                      device)
+        num_correct, loss_sum, total = int(num_correct), float(loss_sum), int(total)
+        if args.test_out:           # every rank's blocks, back in file order
+            from .parallel.mesh import data_group
+            blocks = [None] * n_data
+            dist.all_gather_object(blocks, predictions, group=data_group(mesh))
+            predictions = [p for b in range(len(predictions)) for r in range(n_data)
+                           for p in blocks[r][b]] if distributed.is_main() else []
+    else:
+        predictions = [p for b in predictions for p in b]
+    predictions = [vocab.idx2label[int(p)] for p in predictions]
     accuracy = 100.0 * num_correct / max(total, 1)
     loss = loss_sum / max(total, 1)
     print(f"Test Accuracy: {accuracy:.2f} %  || Test Loss: {loss:.4f} ({total} samples)")
 
-    if args.test_out:
+    if args.test_out and distributed.is_main():
         with open(args.test_out, "w") as f:
             if args.test_out_format == "vqa":
                 # question_id = the 0-based line of --val_file (unshuffled,

@@ -20,6 +20,10 @@ stack for baseline and bert), :meth:`VQANet.features_from_cache` the rest
 (nothing, or the classifier head with its live dropouts), and
 ``forward(..., image_is_features=True)`` takes cached values in place of
 pixels (vqa_tpu's ``image_is_features``).
+
+Under tensor parallelism (``parallel.sharding``, ``tp_active``) the head
+runs on ``DTensor`` s with plain tensors replicated, and ``forward``
+returns the logits as a full local tensor.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
+from ..parallel.sharding import head_context
 from .layers import autocast
 from .vgg import VGGFeatures
 
@@ -37,6 +42,7 @@ class VQANet(nn.Module):
     dtype: torch.dtype
     vgg_trainable: bool = False
     remat: bool = False          # recompute the conv stack in backward
+    tp_active: bool = False      # the head is tensor-parallel (parallel.sharding)
 
     @property
     def vgg(self) -> VGGFeatures:
@@ -96,4 +102,6 @@ class VQANet(nn.Module):
         ``image_is_features``: ``x_img`` holds :meth:`cache_features`' values."""
         feats = (self.features_from_cache(x_img) if image_is_features
                  else self.features(x_img, use_running_stats))
-        return self.head(feats, x_ques, x_ques_lens)
+        with head_context(self.tp_active):
+            logits = self.head(feats, x_ques, x_ques_lens)
+        return logits.full_tensor() if self.tp_active else logits

@@ -23,9 +23,16 @@ frozen, it runs without autograd (``models.base``) and its parameters have
 the tower output (coattention.py:98-100) and its ``set_to_zero`` optimizer
 label (train/state.py:48-55). Inference callers wrap the forward in
 ``torch.no_grad()``.
+
+Sequence parallelism (``act_mesh``, ``--seq_parallel``): the head takes the
+image features as a ``DTensor`` sharded on S over the mesh's ``model`` axis
+(:func:`_seq_shard`), and the co-attention's affinity, softmax over S and
+pooling run on the shards under tensor parallelism (``parallel.sharding``).
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 import torch.nn as nn
@@ -33,6 +40,32 @@ import torch.nn as nn
 from .base import VQANet
 from .layers import LSTM, Embedding, Linear, uniform_
 from .vgg import VGG11Encoder, VGGFeatures
+
+
+def _seq_shard(x: torch.Tensor, mesh):
+    """Sequence parallelism on [B, S, D] image features (vqa_tpu's
+    ``_seq_shard``, coattention.py:39-64): with a ``("data", "model")`` mesh,
+    the features become a ``DTensor`` sharded on S over ``model``. Every
+    rank of a ``model`` group holds the same rows, so this is a local split;
+    the affinity, the softmax over S and the pooling then run on the shards,
+    with DTensor inserting the cross-shard reductions. A no-op without a
+    model axis, and (with a warning) where S is not divisible."""
+    if mesh is None:
+        return x
+    from ..parallel.mesh import MODEL_AXIS, axis_size
+    mp = axis_size(mesh, MODEL_AXIS)
+    if mp <= 1:
+        return x
+    if x.shape[1] % mp:
+        logging.getLogger(__name__).warning(
+            "seq_parallel: S=%d not divisible by model axis %d — replicating "
+            "the sequence dim (sequence parallelism is OFF for this shape)",
+            x.shape[1], mp)
+        return x
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    model_mesh = mesh[MODEL_AXIS]
+    return DTensor.from_local(x, model_mesh, [Replicate()], run_check=False).redistribute(
+        model_mesh, [Shard(1)])
 
 
 class ImageCoAttentionEncoder(nn.Module):
@@ -168,6 +201,7 @@ class HierarchicalCoAttentionNet(VQANet):
         self.dtype = dtype
         self.vgg_trainable = vgg_trainable
         self.remat = remat
+        self.act_mesh = None     # sequence-parallel mesh (see _seq_shard)
         self.question_encoder = QuestionCoAttentionEncoder(
             vocab_size, word_emb_dim, hidden_dim, dtype, generator)
         self.image_encoder = ImageCoAttentionEncoder(
@@ -201,6 +235,7 @@ class HierarchicalCoAttentionNet(VQANet):
         return x.reshape(b, h * w, c)
 
     def head(self, feats, x_ques, x_ques_lens):
+        feats = _seq_shard(feats, self.act_mesh)
         with self._autocast(feats.device):
             x_word, x_phrase, x_sentence = self.question_encoder(x_ques, x_ques_lens)
             img_attn, ques_attn = self.co_attention(

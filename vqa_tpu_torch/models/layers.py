@@ -18,7 +18,9 @@
   (layers.py:100-148).
 - :class:`Dropout`: ``nn.Dropout`` whose masks come from an explicit
   ``torch.Generator`` (:func:`set_dropout_generator`), so a checkpoint that
-  saves the generator resumes with the same masks.
+  saves the generator resumes with the same masks; under data parallelism
+  each rank keeps its rows of the global batch's mask
+  (:func:`set_dropout_rows`).
 """
 
 from __future__ import annotations
@@ -142,15 +144,26 @@ class GRU(nn.GRU):
 class Dropout(nn.Dropout):
     """``nn.Dropout`` drawing its masks from ``self.generator`` (None: the
     default generator). Keeps each value with probability 1 - p and scales
-    the kept ones by 1 / (1 - p), as flax's ``nn.Dropout``."""
+    the kept ones by 1 / (1 - p), as flax's ``nn.Dropout``.
+
+    ``rows = (index, count)`` (data parallelism, :func:`set_dropout_rows`):
+    the input is block ``index`` of ``count`` equal blocks of the global
+    batch, so the mask is drawn for the global batch from the replicated
+    generator and this block of it is kept: every rank uses its rows of the
+    mask a single device would draw."""
 
     generator: torch.Generator | None = None
+    rows: tuple[int, int] = (0, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty(x.shape, device=x.device).bernoulli_(1.0 - self.p,
-                                                               generator=self.generator)
+        index, count = self.rows
+        b = x.shape[0]
+        keep = torch.empty((b * count, *x.shape[1:]), device=x.device).bernoulli_(
+            1.0 - self.p, generator=self.generator)
+        if count > 1:
+            keep = keep[index * b:(index + 1) * b]
         return torch.where(keep.bool(), x / (1.0 - self.p), torch.zeros_like(x))
 
 
@@ -159,3 +172,11 @@ def set_dropout_generator(model: nn.Module, generator: torch.Generator | None) -
     for m in model.modules():
         if isinstance(m, Dropout):
             m.generator = generator
+
+
+def set_dropout_rows(model: nn.Module, index: int, count: int) -> None:
+    """Every :class:`Dropout` of ``model`` sees block ``index`` of ``count``
+    of the global batch (``Dropout.rows``)."""
+    for m in model.modules():
+        if isinstance(m, Dropout):
+            m.rows = (index, count)

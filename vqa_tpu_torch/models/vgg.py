@@ -33,7 +33,8 @@ config down the same branches:
 trainable VGG or batch-stats BatchNorm (``--vgg_train true``, ``--bn_mode
 batch``; vgg.py:397-424): the conv in the compute dtype without a fused
 bias, the bias added in the compute dtype, f32 mean and biased variance
-over every axis but channels (and the pool phases under ``s2d_first``),
+over every axis but channels (and the pool phases under ``s2d_first``) and,
+under data parallelism (``stats_group``), over every rank's rows,
 ``rsqrt(var + 1e-5)``, the affine, the cast back, then ReLU. No int8 stage
 and no kernel runs there. In training mode the running stats take
 ``0.9 * running + 0.1 * batch`` with the same biased variance, in place in
@@ -114,6 +115,23 @@ def _s2d_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, h, w, 4, kernel.shape[3])
 
 
+def _global_moments(yf: torch.Tensor, dims: tuple, group):
+    """Mean and biased variance over ``dims`` of the batch that every rank of
+    ``group`` holds a block of (SyncBatchNorm semantics): the sums and then
+    the squared deviations all-reduced, with autograd through both, so the
+    forward and the backward see the global statistics."""
+    import warnings
+
+    from torch.distributed.nn.functional import all_reduce
+    warnings.filterwarnings("ignore", "torch.distributed.nn.functional.all_reduce is deprecated")
+
+    n = yf.numel() // yf.shape[-1] * torch.distributed.get_world_size(group)
+    mean = all_reduce(yf.sum(dims), group=group) / n
+    d = yf - mean
+    var = all_reduce((d * d).sum(dims), group=group) / n
+    return mean, var
+
+
 class VGGFeatures(nn.Sequential):
     """The conv stack (torch ``vgg11_bn().features``): 5 pool stages.
 
@@ -149,6 +167,7 @@ class VGGFeatures(nn.Sequential):
         self.hpack_pool = hpack_pool
         self.fused_stem = fused_stem
         self.int8_handoff = int8_handoff
+        self.stats_group = None    # data-parallel group of the batch statistics
         self._conv_bn = [(m, self[i + 1]) for i, m in enumerate(self)
                          if isinstance(m, nn.Conv2d)]
 
@@ -240,8 +259,11 @@ class VGGFeatures(nn.Sequential):
                 idx += 1
             yf = y.float()
             dims = tuple(range(yf.dim() - 1))
-            mean = yf.mean(dims)
-            var = yf.var(dims, correction=0)
+            if self.stats_group is None:
+                mean = yf.mean(dims)
+                var = yf.var(dims, correction=0)
+            else:
+                mean, var = _global_moments(yf, dims, self.stats_group)
             stats.append((mean, var))
             yn = (yf - mean) * torch.rsqrt(var + 1e-5) * bn.weight + bn.bias
             x = torch.relu(yn.to(self.dtype))

@@ -20,6 +20,13 @@ gradients are summed and divided by ``grad_accum``, loss and accuracy are
 the means of the microbatch means, and one Adam step follows (steps.py:
 95-124). It needs running-stats BatchNorm.
 
+On a device mesh (``TrainState.runner``, ``state.mesh``; vqa_tpu's GSPMD
+step) the step calls the DDP- or TP/FSDP-wrapped model on this rank's rows;
+the gradients are averaged over ``data`` once a step (DDP's ``no_sync`` and
+FSDP2's ``set_requires_gradient_sync`` hold the microbatches' back under
+``grad_accum``), and the returned loss and accuracy are the global batch's
+means, all-reduced over ``data``.
+
 ``image_is_features`` (vqa_tpu's, steps.py:30,70,144-155): ``batch["image"]``
 holds a feature cache's rows (``data.feature_cache``), so the step skips the
 cached part of the frozen tower (``VQANet.forward``); a cached tower is
@@ -28,9 +35,12 @@ frozen with running statistics, so it does not combine with batch stats.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import all_reduce_grads, head_context
 from .state import TrainState
 
 
@@ -52,20 +62,22 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
     if image_is_features and use_batch_stats_bn:
         raise ValueError("cached features come from a frozen running-stats tower")
 
-    def forward_backward(model, batch):
-        logits = model(batch["image"], batch["question"], batch["ques_len"],
-                       use_running_stats=not use_batch_stats_bn,
-                       image_is_features=image_is_features)
+    def forward_backward(state, runner, batch):
+        logits = runner(batch["image"], batch["question"], batch["ques_len"],
+                        use_running_stats=not use_batch_stats_bn,
+                        image_is_features=image_is_features)
         loss = cross_entropy_loss(logits, batch["label"])
-        loss.backward()
+        with head_context(state.model.tp_active):    # backward of the DTensor head
+            loss.backward()
         accuracy = (logits.detach().argmax(dim=-1) == batch["label"]).float().mean()
         return loss.detach(), accuracy
 
     def train_step(state: TrainState, batch: dict) -> dict:
-        state.model.train()
+        runner = state.runner or state.model
+        runner.train()
         state.optimizer.zero_grad(set_to_none=True)
         if grad_accum == 1:
-            loss, accuracy = forward_backward(state.model, batch)
+            loss, accuracy = forward_backward(state, runner, batch)
         else:
             n = batch["label"].shape[0]
             if n % grad_accum:
@@ -73,9 +85,13 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
             m = n // grad_accum
             loss = accuracy = 0.0
             for i in range(grad_accum):
-                mb_loss, mb_acc = forward_backward(
-                    state.model, {k: v[i * m:(i + 1) * m] for k, v in batch.items()})
+                # one gradient reduction a step: after the last microbatch
+                with _gradient_sync(state, i == grad_accum - 1):
+                    mb_loss, mb_acc = forward_backward(
+                        state, runner, {k: v[i * m:(i + 1) * m] for k, v in batch.items()})
                 loss, accuracy = loss + mb_loss, accuracy + mb_acc
+        all_reduce_grads(state.replicated, state.mesh)
+        if grad_accum > 1:
             for group in state.optimizer.param_groups:
                 for p in group["params"]:
                     if p.grad is not None:
@@ -83,9 +99,48 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
             loss, accuracy = loss / grad_accum, accuracy / grad_accum
         state.optimizer.step()
         state.step += 1
+        if state.mesh is not None:      # the global batch's means, as vqa_tpu's metrics
+            loss, accuracy = data_mean(torch.stack([loss, accuracy]), state.mesh)
         return {"loss": loss, "accuracy": accuracy}
 
     return train_step
+
+
+@contextlib.contextmanager
+def _gradient_sync(state: TrainState, sync: bool):
+    """Hold back the data-parallel gradient reduction of a microbatch's
+    backward unless ``sync`` (DDP's ``no_sync``; FSDP2's
+    ``set_requires_gradient_sync``)."""
+    from torch.nn.parallel import DistributedDataParallel
+
+    if sync or state.mesh is None:
+        yield
+        return
+    if isinstance(state.runner, DistributedDataParallel):
+        with state.runner.no_sync():
+            yield
+        return
+    fsdp = [m for m in state.model.modules() if hasattr(m, "set_requires_gradient_sync")]
+    for m in fsdp:
+        m.set_requires_gradient_sync(False)
+    try:
+        yield
+    finally:
+        for m in fsdp:
+            m.set_requires_gradient_sync(True)
+
+
+def data_mean(values: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over ``data`` of each rank's values (equal blocks: the
+    global batch's mean)."""
+    from ..parallel.mesh import DATA_AXIS, axis_size, data_group
+
+    n = axis_size(mesh, DATA_AXIS)
+    if n > 1:
+        values = values.clone()
+        torch.distributed.all_reduce(values, group=data_group(mesh))
+        values /= n
+    return values
 
 
 def make_eval_step(image_is_features: bool = False):
@@ -108,7 +163,7 @@ def make_eval_step(image_is_features: bool = False):
 
 
 def compute_validation_metrics(eval_step, model, val_iter, prepare_batch,
-                               batch_size: int, size: int) -> dict:
+                               batch_size: int, size: int, mesh=None) -> dict:
     """Accuracy + loss over ``size`` validation samples, with the
     reference's metric definition (main.py:290-351) and its off-by-one: the
     loop breaks *after* batch ``n_iters``, so ``n_iters + 1`` batches
@@ -124,6 +179,15 @@ def compute_validation_metrics(eval_step, model, val_iter, prepare_batch,
         per_batch.append((m["num_correct"], m["loss"]))
         if i >= n_iters:
             break
+    if mesh is not None and per_batch:
+        # every rank holds a block of each batch: the global correct counts
+        # and batch means (equal blocks)
+        from ..parallel.mesh import DATA_AXIS, axis_size, data_group
+        t = torch.stack([torch.stack([c.double(), b.double()]) for c, b in per_batch])
+        if axis_size(mesh, DATA_AXIS) > 1:
+            torch.distributed.all_reduce(t, group=data_group(mesh))
+            t[:, 1] /= axis_size(mesh, DATA_AXIS)
+        per_batch = [(c, b) for c, b in t.cpu().unbind(0)]
     num_correct = sum(int(c) for c, _ in per_batch)
     loss = 0.0
     for _, b_loss in per_batch:
