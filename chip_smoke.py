@@ -13,8 +13,8 @@ without CUDA it exits non-zero before printing any result):
    per source, started together), time the build, and count the
    tensor-core instructions in each kernel's SASS (``cuobjdump -sass``:
    every function of kernels A and B must hold integer ones, every function
-   of kernel C float ones: HMMA, bf16 in its bf16 body, TF32 in its f32
-   body);
+   of kernels C and D float ones: HMMA, bf16 in the bf16 bodies, TF32 in the
+   f32 bodies; kernel E's two GEMM bodies HMMA);
 3. kernel phase, at the attention model's 448² shapes and again at the
    baseline and bert models' 224² (conv0 224 -> 112, conv1 at 112, conv2-3
    at 56, conv4-5 at 28, conv6-7 at 14): each kernel mode of the serving and
@@ -40,6 +40,18 @@ without CUDA it exits non-zero before printing any result):
    carries the 448² numbers of kernel A's requant mode, kernel B's conv1-7
    summed (static path) and kernel C in bf16; lines before it carry every
    mode at 448² and at 224²;
+   Then kernels D and E (``last_kernels_phase``): their paths first, with
+   the counts zeroed just before and read just after:
+   ``conv_hpack.conv_bn_relu_pool`` with its default float route on VGG
+   conv1's input (x [32, 224, 224, 64] at 448², [32, 112, 112, 64] at 224²),
+   bf16 and f32 (D 4 launches), and ``coattention_fused`` forward and
+   backward at the attention model's shape (b32, S 196, L = the vocab's
+   max_seq_length, D 512), bf16 and f32 (E 2). Then D within
+   ``conv3x3_f_bound`` and E within ``coattention_bound`` of their plain
+   versions, E's gradients equal (1e-6 of the largest) to autograd through
+   ``coattention_reference`` for the same cotangent, and each mode timed as
+   above (D's yardstick ``F.conv2d``, TF32 off in f32; E has none: one
+   PyTorch call does not compute its function);
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
    requests with each model at full width and its own image size (attention
    448², baseline and bert 224²), batch 32, ``--opt_lvl 1`` (int8 stages
@@ -138,8 +150,9 @@ without CUDA it exits non-zero before printing any result):
 
 Per-path launch counts go on a line of their own. The line before the last
 is a JSON object of per-kernel launches (kernels A and B: the attention
-model's serving path; kernel C: its float-route training run), errors,
-times and bounds; the last is ``{"ok": true, "device": {...}}``.
+model's serving path; kernel C: its float-route training run; kernels D and
+E: their paths in ``last_kernels_phase``), errors, times and bounds; the
+last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -296,10 +309,86 @@ def sass_counts():
             or not all(set(ops) & {"HMMA", "HGMMA"} for ops in c_funcs.values()):
         raise AssertionError("kernel B lacks integer tensor-core instructions, or a "
                              "function of kernel C float ones")
+    d_funcs = counts["conv3x3_f.cu"]
+    e_gemms = [ops for ops in counts["coattention_fwd.cu"].values() if "HMMA" in ops]
+    if len(d_funcs) < 2 or not all("HMMA" in ops for ops in d_funcs.values()) \
+            or len(e_gemms) < 2:
+        raise AssertionError("a function of kernel D, or one of kernel E's two GEMMs, lacks "
+                             "float tensor-core instructions")
     a_funcs = counts["conv0_s2d_i8.cu"]
     if not a_funcs or not all(set(ops) & {"IMMA", "IGMMA"} for ops in a_funcs.values()):
         raise AssertionError("a function of kernel A lacks integer tensor-core instructions")
     return counts
+
+
+class KernelRows:
+    """The JSON lines' rows, one per (kernel, mode): the worst error over its
+    checks, and its times and bounds summed over its timed calls."""
+
+    def __init__(self):
+        self.rows = {}
+
+    def row(self, name, mode):
+        return self.rows.setdefault((name, mode), {
+            "max_abs_err": 0.0, "ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0,
+            "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None,
+            "op_host_us": 0.0, "direct_host_us": 0.0, "calls": 0})
+
+    def record(self, name, mode, ms, lms, pms, bms, by, lib=None, disp=(0.0, 0.0)):
+        r = self.row(name, mode)
+        r["ms"] += ms
+        r["launch_ms"] += lms
+        r["plain_ms"] += pms
+        r["bound_ms"] += bms
+        r["bound_by"] = by
+        r["op_host_us"] += disp[0]
+        r["direct_host_us"] += disp[1]
+        r["calls"] += 1
+        if lib is not None:
+            r["library_ms"] = (r["library_ms"] or 0.0) + lib
+
+    def check(self, name, mode, label, out, ref, tol=None):
+        """Bit-equal, or within the per-element bound ``tol``; raises if not."""
+        import torch
+        torch.cuda.synchronize()
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if tol is None:
+            ok = torch.equal(out, ref)
+            what = f"bit-equal {ok}"
+        else:
+            ok = bool((diff <= tol).all())
+            what = (f"within bound {ok} (worst diff / bound "
+                    f"{(diff / tol.clamp_min(1e-30)).max().item():.4f}), "
+                    f"{100 * (out != ref).float().mean().item():.4f}% of elements differ")
+        print(f"kernel {name} {label}: shape {tuple(out.shape)} {out.dtype} {what} "
+              f"max_abs_err {err}", flush=True)
+        if not ok:
+            raise AssertionError(f"{name} {label}: kernel differs from its plain version")
+        r = self.row(name, mode)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+
+def cudnn_conv_ms(x, w) -> float:
+    """ms of ``F.conv2d`` (cuDNN, pad 1) on NHWC ``x`` and HWIO ``w`` read as
+    NCHW / OIHW: the conv alone, no bias, ReLU or pool, in full f32 for f32
+    (TF32 off: with TF32 on, cuDNN computes a less accurate function). A
+    yardstick, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+    x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        lib = lambda: F.conv2d(x_nchw, w_oihw, padding=1)    # noqa: E731
+        return timed_pair(lib, lib, n_plain=20)[0]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def dispatch_line(disp):
+    return (f"host per call through the operator {disp[0]:.1f} us, its CUDA implementation "
+            f"called directly {disp[1]:.1f} us (dispatch {disp[0] - disp[1]:.1f} us)")
 
 
 def layer_shapes(image: int):
@@ -329,50 +418,11 @@ def kernel_phase(dev, image: int):
     def rs(n, lo, hi):
         return (torch.rand(n, generator=g) * (hi - lo) + lo).to(dev)
 
-    rows = {}
-
-    def row(name, mode):
-        return rows.setdefault((name, mode), {
-            "max_abs_err": 0.0, "ms": 0.0, "launch_ms": 0.0, "plain_ms": 0.0,
-            "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None,
-            "op_host_us": 0.0, "direct_host_us": 0.0, "calls": 0})
-
-    def record(name, mode, ms, lms, pms, bms, by, lib=None, disp=(0.0, 0.0)):
-        r = row(name, mode)
-        r["ms"] += ms
-        r["launch_ms"] += lms
-        r["plain_ms"] += pms
-        r["bound_ms"] += bms
-        r["bound_by"] = by
-        r["op_host_us"] += disp[0]
-        r["direct_host_us"] += disp[1]
-        r["calls"] += 1
-        if lib is not None:
-            r["library_ms"] = (r["library_ms"] or 0.0) + lib
-
-    def dispatch_line(disp):
-        return (f"host per call through the operator {disp[0]:.1f} us, its CUDA implementation "
-                f"called directly {disp[1]:.1f} us (dispatch {disp[0] - disp[1]:.1f} us)")
+    kr = KernelRows()
+    row, record = kr.row, kr.record
 
     def check(name, mode, label, out, ref, tol=None):
-        """Bit-equal, or within the per-element bound ``tol``."""
-        torch.cuda.synchronize()
-        diff = (out.float() - ref.float()).abs()
-        err = diff.max().item()
-        if tol is None:
-            ok = torch.equal(out, ref)
-            what = f"bit-equal {ok}"
-        else:
-            ok = bool((diff <= tol).all())
-            what = (f"within bound {ok} (worst diff / bound "
-                    f"{(diff / tol.clamp_min(1e-30)).max().item():.4f}), "
-                    f"{100 * (out != ref).float().mean().item():.4f}% of elements differ")
-        print(f"kernel {name} {tag} {label}: shape {tuple(out.shape)} {out.dtype} {what} "
-              f"max_abs_err {err}", flush=True)
-        if not ok:
-            raise AssertionError(f"{name} {tag} {label}: kernel differs from its plain version")
-        r = row(name, mode)
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        kr.check(name, mode, f"{tag} {label}", out, ref, tol)
 
     # kernel A: conv0, calibration pass (bf16 out, dynamic scale) and static
     # path (requant for conv1). The yardstick is torch._int_mm on kernel A's
@@ -468,7 +518,7 @@ def kernel_phase(dev, image: int):
                       f"{100 * bms / lms:.1f}% of bound), plain {pms:.4f} ms, bound {bms:.4f} ms "
                       f"({by}); {dispatch_line(disp)}", flush=True)
             del x
-    r = rows[("conv3x3_i8", "static")]
+    r = kr.rows[("conv3x3_i8", "static")]
     print(f"time conv3x3_i8 {tag} conv1-7 static b{BATCH}: wrapper {r['ms']:.4f} ms "
           f"({100 * r['bound_ms'] / r['ms']:.1f}% of bound), launch {r['launch_ms']:.4f} ms "
           f"({100 * r['bound_ms'] / r['launch_ms']:.1f}% of bound), plain {r['plain_ms']:.4f} ms, "
@@ -498,14 +548,7 @@ def kernel_phase(dev, image: int):
             w32, b32 = conv_stage1.conv0_f_operands(x, w, bias)
             wk = conv_stage1.conv0_f_kernel_weights(x, w32)
             lms = timed(lambda: conv_stage1.launch_conv0_f(x, wk, b32))
-            x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
-            tf32 = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-            try:
-                lib = lambda: F.conv2d(x_nchw, w_oihw, padding=1)  # noqa: E731
-                cms, _ = timed_pair(lib, lib, n_plain=20)
-            finally:
-                torch.backends.cudnn.allow_tf32 = tf32
+            cms = cudnn_conv_ms(x, w)
             out = k()
             moved, macs = nbytes(x, w, bias, out), b * image * image * 27 * 64
             if dt == torch.bfloat16:
@@ -524,7 +567,153 @@ def kernel_phase(dev, image: int):
                   f"({by}, {100 * bms / ms:.1f}% of bound, {100 * bms / lms:.1f}% at launch)"
                   f"{old}; {dispatch_line(disp)}", flush=True)
             del x
-    return rows
+    return kr.rows
+
+
+def last_kernels_phase(dev, seq_len: int, card: str):
+    """Kernels D (the pooled conv's float route) and E (the fused
+    co-attention forward): first their paths, with the counts zeroed just
+    before and read just after: ``conv_bn_relu_pool`` with its default
+    ``int8=False`` on VGG conv1's input at 448² and at 224², b32, bf16 and
+    f32, and ``coattention_fused`` forward and backward at the attention
+    model's shape (b32, S 196, L = the vocab's max_seq_length, D 512), bf16
+    and f32. Then each against its plain version (D within
+    ``conv3x3_f_bound``, E within ``coattention_bound``; E's gradients
+    against autograd through ``coattention_reference`` for one cotangent)
+    and timed as kernel_phase times A-C. Returns ({image: {(kernel, mode):
+    row}}, {kernel: launches on the paths})."""
+    import torch
+    from vqa_tpu_torch import _build
+    from vqa_tpu_torch.ops import coattention_kernel as ck
+    from vqa_tpu_torch.ops import conv_hpack, library
+
+    g = torch.Generator().manual_seed(13)
+    dts = {"bf16": torch.bfloat16, "f32": torch.float32}
+    convs = {}
+    for image in (IMAGE, IMAGE_224):
+        for label, dt in dts.items():
+            x = (torch.relu(torch.randn((BATCH, image // 2, image // 2, 64), generator=g))
+                 * 1.5).to(dev, dt)
+            w = (torch.randn((3, 3, 64, 128), generator=g) * 0.05).to(dev, dt)
+            convs[(image, label)] = (x, w, (torch.randn(128, generator=g) * 0.1).to(dev))
+    s, d, lim = (IMAGE // 32) ** 2, 512, 512 ** -0.5
+    base = [((torch.rand(sh, generator=g) * 2 - 1) * lim).to(dev)
+            for sh in ((d, d), (d,), (d, d), (d,), (d, 1), (1,), (d, 1), (1,))]
+    v32 = (torch.relu(torch.randn((BATCH, s, d), generator=g)) * 2).to(dev)
+    q32 = torch.randn((BATCH, 3, seq_len, d), generator=g).to(dev)
+    cot = torch.randn((2, BATCH, 3, d), generator=g).to(dev)
+    attn = {label: (v32.to(dt), q32.to(dt), [p.to(dt) for p in base]) for label, dt in dts.items()}
+
+    def stacked(img, ques):
+        return torch.stack([torch.stack(img, 1), torch.stack(ques, 1)])
+
+    # the paths
+    t0 = time.perf_counter()
+    _build.reset_counts()
+    for x, w, b in convs.values():
+        conv_hpack.conv_bn_relu_pool(x, w, b)
+    fused_grads = {}
+    for label, (v, q, params) in attn.items():
+        leaves = [t.clone().requires_grad_() for t in (v, q, *params)]
+        stacked(*ck.coattention_fused(leaves[2:], leaves[0], list(leaves[1].unbind(1)))).backward(
+            cot.to(v.dtype))
+        fused_grads[label] = [t.grad for t in leaves]
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in _build.KERNELS}
+    plain = {k.symbol: k.plain_on_cuda for k in _build.KERNELS}
+    print(f"launches path=conv_bn_relu_pool_float_and_coattention_fused: {json.dumps(launches)} "
+          f"({time.perf_counter() - t0:.2f} s)", flush=True)
+    if launches != {"conv0_s2d_i8": 0, "conv3x3_i8": 0, "conv0_f": 0, "conv3x3_f": len(convs),
+                    "coattention_fwd": len(attn)} or any(plain.values()):
+        raise AssertionError(f"the float pooled conv and co-attention paths: launches "
+                             f"{launches}, plain versions on CUDA tensors {plain}")
+
+    rows = {IMAGE: KernelRows(), IMAGE_224: KernelRows()}
+
+    def timings(k, p, launch, direct):
+        ms, pms = timed_pair(k, p)
+        lms = timed(launch)
+        disp = dispatch_pair(k, direct)
+        return ms, lms, pms, disp
+
+    # kernel D; the library yardstick is cuDNN's conv alone (cudnn_conv_ms)
+    for (image, label), (x, w, b) in convs.items():
+        tag = f"{image}² b{BATCH} {label}"
+        k = lambda: conv_hpack.conv_bn_relu_pool(x, w, b)            # noqa: E731
+        p = lambda: conv_hpack.conv3x3_f_plain(x, w, b)             # noqa: E731
+        ref = p()
+        rows[image].check("conv3x3_f", label, tag, k(), ref, conv_hpack.conv3x3_f_bound(x, w, ref))
+        del ref
+        wk, b32 = conv_hpack.conv3x3_f_operands(x, w, b)
+        ms, lms, pms, disp = timings(
+            k, p, lambda: conv_hpack.launch_conv3x3_f(x, wk, b32),  # noqa: B023
+            lambda: library.CUDA_IMPLS["conv3x3_f"](x, w, b))       # noqa: B023
+        cms = cudnn_conv_ms(x, w)
+        out = k()
+        bsz, h, wd, c = x.shape
+        moved, macs = nbytes(x, wk, b32, out), bsz * h * wd * 9 * c * w.shape[-1]
+        if label == "bf16":
+            bms, by = bound(moved, 2.0 * macs, BF16_FLOPS)
+            cc = ""
+        else:
+            bms, by = bound(moved, 3 * 2.0 * macs, TF32_FLOPS)
+            cc_ms, cc_by = bound(moved, 2.0 * macs, F32_FLOPS)
+            cc = f"; CUDA-core f32 bound {cc_ms:.4f} ms ({cc_by})"
+        del out
+        rows[image].record("conv3x3_f", label, ms, lms, pms, bms, by, cms, disp)
+        print(f"time conv3x3_f {tag}: wrapper {ms:.4f} ms, launch {lms:.4f} ms "
+              f"({2.0 * macs / (lms * 1e-3) / 1e12:.1f} TFLOP/s), plain {pms:.4f} ms, F.conv2d "
+              f"(conv only) {cms:.4f} ms, bound {bms:.4f} ms ({by}, {100 * bms / ms:.1f}% of "
+              f"bound, {100 * bms / lms:.1f}% at launch){cc}; {dispatch_line(disp)} ({card})",
+              flush=True)
+    del convs
+
+    # kernel E: forward vs the plain version, the gradients of the path's
+    # backward vs autograd through the reference; no single PyTorch call
+    # computes this function (library_ms null)
+    for label, (v, q, params) in attn.items():
+        tag = f"b{BATCH} S{s} L{seq_len} D{d} {label}"
+        kp = [params[i] for i in (0, 1, 2, 3, 4, 6)]                 # no c_v, c_q
+        k = lambda: ck.coattention_fwd(v, q, *kp)                   # noqa: E731
+        p = lambda: ck.coattention_plain(v, q, *kp)                 # noqa: E731
+        ref = p()
+        for name, o, r, tol in zip(("out_v", "out_q"), k(), ref, ck.coattention_bound(v, q, *ref)):
+            rows[IMAGE].check("coattention_fwd", label, f"{tag} {name}", o, r, tol)
+        leaves = [t.clone().requires_grad_() for t in (v, q, *params)]
+        stacked(*ck.coattention_reference(leaves[2:], leaves[0],
+                                          list(leaves[1].unbind(1)))).backward(cot.to(v.dtype))
+        gerr = max(((a.float() - t.grad.float()).abs().max() / t.grad.float().abs().max().clamp_min(
+            1e-30)).item() for a, t in zip(fused_grads[label], leaves))
+        print(f"kernel coattention_fwd {tag} backward: gradients of V, Q and the 8 parameters "
+              f"vs autograd through coattention_reference, max |diff| / max |grad| {gerr}",
+              flush=True)
+        if not gerr <= 1e-6:
+            raise AssertionError(f"coattention_fused {tag}: gradients differ from the "
+                                 f"reference's autograd")
+        ops_k = ck.coattention_kernel_operands(v, *kp)
+        ms, lms, pms, disp = timings(
+            k, p, lambda: ck.launch_coattention_fwd(v, q, *ops_k),  # noqa: B023
+            lambda: library.CUDA_IMPLS["coattention_fwd"](v, q, *kp))  # noqa: B023
+        bsz, l = v.shape[0], q.shape[2]
+        # operations on input-type operands (the projections and Q V^T) and on
+        # f32 intermediates (H_v, H_q, the scores and the pooled sums); f32
+        # ones count as 3 TF32 operations (3xTF32), put in bf16-peak units
+        in_ops = 2.0 * (bsz * s + 3 * bsz * l) * d * d + 2.0 * bsz * 3 * l * s * d
+        f32_ops = 2.0 * bsz * 3 * (2 * l * s * d + 2 * (s + l) * d)
+        if label == "bf16":
+            ops = in_ops + f32_ops * 3 * BF16_FLOPS / TF32_FLOPS
+        else:
+            ops = (in_ops + f32_ops) * 3 * BF16_FLOPS / TF32_FLOPS
+        outs = k()
+        bms, by = bound(nbytes(v, q, *ops_k, *outs), ops, BF16_FLOPS)
+        rows[IMAGE].record("coattention_fwd", label, ms, lms, pms, bms, by, None, disp)
+        print(f"time coattention_fwd {tag}: wrapper {ms:.4f} ms, launch {lms:.4f} ms, plain "
+              f"{pms:.4f} ms, library call: none, bound {bms:.4f} ms ({by}, "
+              f"{(in_ops + f32_ops) / 1e9:.3f} GFLOP, {nbytes(v, q, *ops_k, *outs) / 1e6:.2f} MB; "
+              f"{100 * bms / ms:.1f}% of bound, {100 * bms / lms:.1f}% at launch); "
+              f"{dispatch_line(disp)} ({card})", flush=True)
+    return ({image: kr.rows for image, kr in rows.items()},
+            {"conv3x3_f": launches["conv3x3_f"], "coattention_fwd": launches["coattention_fwd"]})
 
 
 def write_requests():
@@ -1386,7 +1575,8 @@ def multidevice_phase(vocab_file, card: str, device="cuda") -> dict:
     print(f"mesh world 1 --mode test on the FSDP run's model_6.ckpt: {results[0]} (no mesh "
           f"{results[1]})", flush=True)
     if results[0] != results[1] or results[0]["samples"] != BATCH \
-            or tests[0][1] != {"conv0_s2d_i8": 1, "conv3x3_i8": 7, "conv0_f": 0}:
+            or {k: n for k, n in tests[0][1].items() if n} != {"conv0_s2d_i8": 1,
+                                                                "conv3x3_i8": 7}:
         raise AssertionError("mesh world 1 --mode test: not the run without a mesh's "
                              "result, or not A once and B 7 times for its one batch")
 
@@ -1477,6 +1667,14 @@ def main() -> int:
     # the attention model's shapes (448²), then the baseline and bert models' (224²)
     rows = {image: kernel_phase(dev, image) for image in (IMAGE, IMAGE_224)}
     vocab_file, pairs = write_requests()
+    from vqa_tpu_torch.vocab import Vocab
+    t0 = time.perf_counter()
+    last_rows, last_launches = last_kernels_phase(dev, Vocab.load(vocab_file).max_seq_length,
+                                                  card)
+    for image, image_rows in last_rows.items():
+        rows[image].update(image_rows)
+    print(f"kernels D and E phase: {time.perf_counter() - t0:.2f} s ({card})", flush=True)
+    torch.cuda.empty_cache()
     serve_launches, export_launches = {}, {}
     forwards = -(-N_REQUESTS // BATCH)
     for model_name in ("attention", "baseline", "bert"):
@@ -1492,7 +1690,6 @@ def main() -> int:
         torch.cuda.empty_cache()
     # the f32 artifact: baseline at --opt_lvl 0, kernel C (3xTF32) once a batch
     from vqa_tpu_torch.serve import VQAPredictor
-    from vqa_tpu_torch.vocab import Vocab
     predictor = VQAPredictor("baseline", Vocab.load(vocab_file), batch_size=BATCH, opt_lvl=0,
                              synthetic_images=True, device="cuda")
     export_launches.update({f"{k} f32": v for k, v in export_phase(
@@ -1526,7 +1723,8 @@ def main() -> int:
     # the JSON line's modes: kernel A's requant, kernel B's conv1-7 static
     # path summed, kernel C in bf16; every mode at 448² and at 224² on the
     # lines above it
-    json_modes = {"conv0_s2d_i8": "static requant", "conv3x3_i8": "static", "conv0_f": "bf16"}
+    json_modes = {"conv0_s2d_i8": "static requant", "conv3x3_i8": "static", "conv0_f": "bf16",
+                  "conv3x3_f": "bf16", "coattention_fwd": "bf16"}
     for image, models in ((IMAGE, "attention"), (IMAGE_224, "baseline and bert")):
         print(f"kernels at {image}² (b32; {models}): " + json.dumps([
             {**kernel_fields(image, k, mode), "mode": mode}
@@ -1539,7 +1737,8 @@ def main() -> int:
     # kernel C from its float-route training run (each read just after its
     # own run)
     path_launches = {**serve_launches["attention"],
-                     "conv0_f": train_launches["train float attention"]["conv0_f"]}
+                     "conv0_f": train_launches["train float attention"]["conv0_f"],
+                     **last_launches}
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {**kernel_fields(IMAGE, k, json_modes[k.symbol]), "launches": path_launches[k.symbol]}

@@ -7,11 +7,14 @@ On a machine with a card and nvcc, run the card tests with
 
 (``--noconftest``: the suite's conftest sets up JAX). There each kernel mode
 must equal its plain version bit for bit, at odd shapes that exercise the
-tile edges, except kernel C, which sums on the tensor cores in another
-order (in f32 through 3xTF32) and is held within
-``conv_stage1.conv0_f_bound``. Without a card those tests skip; the
-dispatch contract, the weight layouts, a model of kernel C's 3xTF32
-arithmetic and the soundness of that bound run everywhere.
+tile edges, except the float kernels, which sum on the tensor cores in
+another order (in f32 through 3xTF32): kernel C is held within
+``conv_stage1.conv0_f_bound``, kernel D within ``conv_hpack.conv3x3_f_bound``
+and kernel E within ``coattention_kernel.coattention_bound``. Without a card
+those tests skip; the dispatch contract, the weight layouts, a model of
+kernel C's 3xTF32 arithmetic and the soundness of that bound run everywhere
+(kernel D's and E's bounds: tests/test_torch_hpack_float.py and
+tests/test_torch_coattention_kernel.py).
 """
 
 import os
@@ -22,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from vqa_tpu_torch import _build
-from vqa_tpu_torch.ops import conv_hpack, conv_stage1, quant
+from vqa_tpu_torch.ops import coattention_kernel, conv_hpack, conv_stage1, quant
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -41,6 +44,15 @@ def test_cpu_tensors_take_plain_version_and_count_nothing():
     assert tuple(out.shape) == (1, 2, 3, 64) and out.dtype == torch.int8
     out = conv_stage1.conv0_f(x0.to(torch.bfloat16), w0.float(), one)
     assert tuple(out.shape) == (1, 2, 3, 64) and out.dtype == torch.bfloat16
+    xf = torch.from_numpy(rng.standard_normal((1, 5, 7, 8)).astype(np.float32))
+    out = conv_hpack.conv3x3_f(xf.bfloat16(), torch.ones(3, 3, 8, 16), torch.ones(16))
+    assert tuple(out.shape) == (1, 2, 3, 16) and out.dtype == torch.bfloat16
+    v = torch.from_numpy(rng.standard_normal((2, 6, 32)).astype(np.float32))
+    q = torch.from_numpy(rng.standard_normal((2, 3, 4, 32)).astype(np.float32))
+    vec = torch.ones(32)
+    out_v, out_q = coattention_kernel.coattention_fwd(v, q, torch.eye(32), vec, torch.eye(32),
+                                                      vec, vec, vec)
+    assert tuple(out_v.shape) == tuple(out_q.shape) == (2, 3, 32)
     assert all(k.launches == 0 and k.plain_on_cuda == 0 for k in _build.KERNELS)
 
 
@@ -62,6 +74,8 @@ def test_plain_pool_equals_pool_after_epilogue():
 
 def test_kernels_name_their_sources_and_tpu_counterparts():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert [k.symbol for k in _build.KERNELS] == [
+        "conv0_s2d_i8", "conv3x3_i8", "conv0_f", "conv3x3_f", "coattention_fwd"]
     for k in _build.KERNELS:
         assert os.path.exists(os.path.join(_build.CSRC, k.source))
         for part in k.replaces.split(", "):
@@ -610,10 +624,111 @@ def test_kernels_repeat_bit_for_bit_on_card(cuda):
                                              out_dtype=torch.bfloat16),
              lambda: conv_stage1.conv0_f(xf.bfloat16(), wf, s64),
              lambda: conv_stage1.conv0_f(xf, wf, s64)]
+    x3 = torch.randn((2, 13, 22, 64), generator=g).to(cuda)
+    w3 = (torch.randn((3, 3, 64, 128), generator=g) * 0.05).to(cuda)
+    v, q, params = _kernel_e_inputs((2, 49, 7, 64), g, cuda)
+    calls += [lambda: conv_hpack.conv3x3_f(x3.bfloat16(), w3, s256[:128]),
+              lambda: conv_hpack.conv3x3_f(x3, w3, s256[:128]),
+              lambda: torch.cat(coattention_kernel.coattention_fwd(v.bfloat16(), q.bfloat16(),
+                                                                   *params)),
+              lambda: torch.cat(coattention_kernel.coattention_fwd(v, q, *params))]
     _build.reset_counts()
     for call in calls:
         assert torch.equal(call(), call())
-    assert [k.launches for k in _build.KERNELS] == [2, 2, 4]
+    assert [k.launches for k in _build.KERNELS] == [2, 2, 4, 4, 4]
+
+
+# (shape (B, H, W), C_in, C_out): odd H and W (pooled 9 x 18, partial 4 x
+# 16 tiles, the last row and column of conv outputs unused); C_out 200 (a
+# second block of 128 channels, 72 of them stored) with C_in 96 (3 chunks of
+# bf16 and 12 of f32); C 8 (one chunk, zero-filled
+# past C); VGG conv1 at 224² (x [2, 112, 112, 64]) and at 448² (x [1, 224,
+# 224, 64])
+KERNEL_D_CASES = {"odd": ((2, 19, 37), 64, 128), "channels_96_200": ((2, 12, 20), 96, 200),
+                  "channels_8": ((1, 6, 10), 8, 8), "conv1_224": ((2, 112, 112), 64, 128),
+                  "conv1_448": ((1, 224, 224), 64, 128)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(KERNEL_D_CASES))
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_kernel_d_matches_plain_on_card(cuda, mode, case):
+    """``conv_bn_relu_pool`` with its default float route launches kernel D,
+    within ``conv3x3_f_bound`` of ``conv3x3_f_plain``."""
+    shape, c, o = KERNEL_D_CASES[case]
+    g = torch.Generator().manual_seed(6)
+    x = torch.relu(torch.randn((*shape, c), generator=g)).to(cuda, TORCH_DT[mode])
+    w = (torch.randn((3, 3, c, o), generator=g) * 0.1).to(cuda)
+    b = (torch.randn(o, generator=g) * 0.1).to(cuda)
+    _build.reset_counts()
+    out = conv_hpack.conv_bn_relu_pool(x, w, b)
+    assert _build.CONV3X3_F.launches == 1 and out.dtype == TORCH_DT[mode]
+    ref = conv_hpack.conv3x3_f_plain(x, w, b)
+    assert _build.CONV3X3_F.launches == 1 and _build.CONV3X3_F.plain_on_cuda == 1
+    assert tuple(out.shape) == (shape[0], shape[1] // 2, shape[2] // 2, o)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= conv_hpack.conv3x3_f_bound(x, w, ref)).all())
+
+
+def _kernel_e_inputs(shape, g, device):
+    """V [B, S, D] (ReLU features), Q [B, 3, L, D] and the kernel's six
+    parameters (W_v, b_v, W_q, b_q, w_v, w_q) at the model's init scale."""
+    b, s, l, d = shape
+    lim = d ** -0.5
+    params = [((torch.rand(sh, generator=g) * 2 - 1) * lim).to(device)
+              for sh in ((d, d), (d,), (d, d), (d,), (d, 1), (d, 1))]
+    v = (torch.relu(torch.randn((b, s, d), generator=g)) * 2).to(device)
+    q = torch.randn((b, 3, l, d), generator=g).to(device)
+    return v, q, params
+
+
+# (B, S, L, D): the attention model's shape at b32 (S 196 = 14², L 23) and at
+# b3 with S 49 (224²); B 6 (not a multiple of the TPU kernel's block of 4)
+# at a small width; S 7 and L 1 (odd, a single word)
+KERNEL_E_CASES = {"b32": (32, 196, 23, 512), "s49": (3, 49, 23, 512),
+                  "small": (6, 16, 5, 32), "odd": (1, 7, 1, 64)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(KERNEL_E_CASES))
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_kernel_e_matches_plain_on_card(cuda, mode, case):
+    """``coattention_fused``'s forward launches kernel E once, within
+    ``coattention_bound`` of ``coattention_plain``."""
+    g = torch.Generator().manual_seed(7)
+    v, q, (wv_, bv, wq_, bq, sv, sq) = _kernel_e_inputs(KERNEL_E_CASES[case], g, cuda)
+    v, q = v.to(TORCH_DT[mode]), q.to(TORCH_DT[mode])
+    zero = torch.zeros(1, device=cuda)
+    params = (wv_, bv, wq_, bq, sv, zero, sq, zero)
+    _build.reset_counts()
+    img, ques = coattention_kernel.coattention_fused(params, v, list(q.unbind(1)))
+    assert _build.COATTENTION_FWD.launches == 1
+    ref = coattention_kernel.coattention_plain(v, q, wv_, bv, wq_, bq, sv, sq)
+    assert _build.COATTENTION_FWD.plain_on_cuda == 1
+    for out, r, bound in zip((torch.stack(img, 1), torch.stack(ques, 1)), ref,
+                             coattention_kernel.coattention_bound(v, q, *ref)):
+        assert out.dtype == TORCH_DT[mode] and out.shape == r.shape
+        assert bool(((out.float() - r.float()).abs() <= bound).all())
+
+
+@pytest.mark.cuda
+def test_kernel_e_gradients_on_card(cuda):
+    """Gradients through kernel E's forward equal autograd through
+    ``coattention_reference`` for one cotangent: the backward recomputes
+    through it."""
+    g = torch.Generator().manual_seed(8)
+    v, q, (wv_, bv, wq_, bq, sv, sq) = _kernel_e_inputs((4, 49, 23, 128), g, cuda)
+    cv, cq = torch.randn(1, generator=g).to(cuda), torch.randn(1, generator=g).to(cuda)
+    cot = torch.randn((2, 4, 3, 128), generator=g).to(cuda)
+    grads = []
+    for fn in (coattention_kernel.coattention_fused, coattention_kernel.coattention_reference):
+        leaves = [t.clone().requires_grad_() for t in (v, q, wv_, bv, wq_, bq, sv, cv, sq, cq)]
+        img, ques = fn(tuple(leaves[2:]), leaves[0], list(leaves[1].unbind(1)))
+        out = torch.stack([torch.stack(img, 1), torch.stack(ques, 1)])
+        out.backward(cot)
+        grads.append([t.grad for t in leaves])
+    for a, b in zip(*grads):
+        assert torch.allclose(a, b, rtol=0, atol=1e-6 * float(b.abs().max()) + 1e-12)
 
 
 @pytest.mark.cuda
@@ -629,7 +744,8 @@ def test_float_conv0_route_raises_on_card(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["conv0_i8", "int8_conv3x3", "conv0_f"])
+@pytest.mark.parametrize("name", ["conv0_i8", "int8_conv3x3", "conv0_f", "conv3x3_f",
+                                  "coattention_fwd"])
 def test_kernel_operators_pass_opcheck_on_card(cuda, name):
     """``torch.library.opcheck`` of each registered operator on CUDA tensors
     (its CUDA implementation, which launches the kernel, against its fake),
@@ -657,6 +773,12 @@ def test_kernel_operators_pass_opcheck_on_card(cuda, name):
                      b64),
                     (torch.randn((2, 8, 10, 3), generator=g).bfloat16(),
                      torch.randn(3, 3, 3, 64) * 0.2, b64)],
+        "conv3x3_f": [(torch.randn((2, 8, 10, 16), generator=g), torch.randn(3, 3, 16, 64) * 0.1,
+                       b64),
+                      (torch.randn((2, 9, 11, 16), generator=g).bfloat16(),
+                       torch.randn(3, 3, 16, 64) * 0.1, b64)],
+        "coattention_fwd": [(v.to(dt), q.to(dt), *params) for dt in (torch.float32, torch.bfloat16)
+                            for v, q, params in [_kernel_e_inputs((2, 16, 5, 64), g, "cpu")]],
     }
     op = library.OPS[name]
     for args in cases[name]:
@@ -665,5 +787,7 @@ def test_kernel_operators_pass_opcheck_on_card(cuda, name):
         assert set(result.values()) == {"SUCCESS"}, result
         _build.reset_counts()
         out = op(*args)
+        out = torch.cat(out) if isinstance(out, tuple) else out
         assert out.is_cuda and sum(k.launches for k in _build.KERNELS) == 1
-        assert torch.equal(out, library.CUDA_IMPLS[name](*args))
+        direct = library.CUDA_IMPLS[name](*args)
+        assert torch.equal(out, torch.cat(direct) if isinstance(direct, tuple) else direct)

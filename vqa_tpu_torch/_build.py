@@ -148,7 +148,17 @@ CONV0_F = CudaKernel(
              "vqa_tpu/ops/conv_stage1.py:178 (_kernel_v2), "
              "vqa_tpu/ops/conv_stage1.py:209 (_kernel_wide)")
 
-KERNELS = (CONV0_S2D_I8, CONV3X3_I8, CONV0_F)
+CONV3X3_F = CudaKernel(
+    "conv3x3_f.cu", "conv3x3_f",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    replaces="vqa_tpu/ops/conv_hpack.py:104 (_kernel with int8=False)")
+
+COATTENTION_FWD = CudaKernel(
+    "coattention_fwd.cu", "coattention_fwd",
+    [_P] * 13 + [_I, _I, _I, _I, _I, _P],
+    replaces="tools/retired/coattention_kernel.py:45 (_kernel)")
+
+KERNELS = (CONV0_S2D_I8, CONV3X3_I8, CONV0_F, CONV3X3_F, COATTENTION_FWD)
 
 
 def build_all() -> None:

@@ -140,7 +140,9 @@ def build_model(model_name: str, vocab_size: int, num_classes: int, *,
             raise NotImplementedError(
                 "the fused co-attention Pallas kernel was retired in the JAX "
                 "package (PARITY.md M8 criterion; "
-                "tools/retired/coattention_kernel.py) and has no port")
+                "tools/retired/coattention_kernel.py), and the model does not "
+                "take it here either; its port is "
+                "vqa_tpu_torch.ops.coattention_kernel.coattention_fused")
         model = HierarchicalCoAttentionNet(
             vocab_size=vocab_size, K=num_classes, mlp_dim=cfg.mlp_dim, remat=remat,
             **vgg_kwargs, **cfg.question_params)

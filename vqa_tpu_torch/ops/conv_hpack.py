@@ -1,20 +1,25 @@
-"""int8 conv3x3 + bias + ReLU (+ 2x2 maxpool) with a fused epilogue.
+"""Pooled VGG stage, conv3x3 + bias + ReLU (+ 2x2 maxpool), int8 and float.
 
-Port of the int8 part of vqa_tpu/ops/conv_hpack.py. The TPU kernel packs H
-row pairs onto lanes so its dots contract full 128-lane K; that is a TPU
-layout trick, and here the input stays plain NHWC int8. Kernel B
-(``csrc/conv3x3_i8.cu``, an implicit GEMM on the int8 tensor cores) is the
-one int8 conv of the port: it runs this pooled stage (conv1 in the
-calibration pass), the static-path conv1 after the fused stem, and conv2-7,
-which the JAX package leaves to XLA's int8 conv.
+Port of vqa_tpu/ops/conv_hpack.py. The TPU kernel packs H row pairs onto
+lanes so its dots contract full 128-lane K; that is a TPU layout trick, and
+here the input stays plain NHWC. Two hand-written kernels:
 
-:func:`int8_conv3x3` is the kernel's wrapper. It calls the registered
-operator ``vqa_tpu_torch::int8_conv3x3`` (``ops.library``): a CUDA tensor
-launches kernel B (or raises), a CPU tensor runs :func:`int8_conv3x3_plain`.
-Pooling the int32 sums before the epilogue equals the JAX order (epilogue,
-then pool, or quantize, then pool on int8): every epilogue step is
-non-decreasing because the scale is positive
-(vqa_tpu/ops/conv_hpack.py:24-28).
+- int8: kernel B (``csrc/conv3x3_i8.cu``, an implicit GEMM on the int8
+  tensor cores) is the one int8 conv of the port: it runs this pooled stage
+  (conv1 in the calibration pass), the static-path conv1 after the fused
+  stem, and conv2-7, which the JAX package leaves to XLA's int8 conv.
+  :func:`int8_conv3x3` is its wrapper. Pooling the int32 sums before the
+  epilogue equals the JAX order (epilogue, then pool, or quantize, then pool
+  on int8): every epilogue step is non-decreasing because the scale is
+  positive (vqa_tpu/ops/conv_hpack.py:24-28).
+- float (``int8=False``, the JAX function's default route): kernel D
+  (``csrc/conv3x3_f.cu``, an implicit GEMM with K = 9 C on ``mma.sync``:
+  bf16 with f32 sums, f32 as 3xTF32). :func:`conv3x3_f` is its wrapper,
+  :func:`conv3x3_f_plain` its arithmetic, and the kernel is held within
+  :func:`conv3x3_f_bound` of it.
+
+Each wrapper calls its registered operator (``ops.library``): a CUDA tensor
+launches the kernel (or raises), a CPU tensor runs the plain version.
 """
 
 from __future__ import annotations
@@ -22,7 +27,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .._build import CONV3X3_I8
+from .._build import CONV3X3_F, CONV3X3_I8
+from .conv_stage1 import ulp
 from .quant import activation_quant, const, epilogue, int_conv3x3, weight_quant
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,19 +108,121 @@ def launch_int8_conv3x3(x_q, wp, scale, bias, *, pool: bool, s_next=None,
     return out
 
 
-def conv_bn_relu_pool(x, w, b, *, int8: bool = True, s_x=None, s_next=None):
-    """Pooled int8 VGG stage: conv3x3(pad1) + (folded-BN) bias + ReLU + maxpool2x2.
+def _pooled_conv_sums(x32, w32):
+    """The 2x2 max over the f32 sums of a conv3x3 (pad 1) of f32 NHWC ``x32``
+    and HWIO ``w32``: one f32 matmul over C per tap, the taps added in
+    (kh, kw) order. Odd H/W floor (VALID pool): the last row or column is
+    not computed."""
+    bsz, h, wd, _ = x32.shape
+    ho, wo = h // 2, wd // 2
+    xp = F.pad(x32, (0, 0, 1, 1, 1, 1))
+    acc = None
+    for kh in range(3):
+        for kw in range(3):
+            t = xp[:, kh:kh + 2 * ho, kw:kw + 2 * wo, :] @ w32[kh, kw]
+            acc = t if acc is None else acc + t
+    return acc.reshape(bsz, ho, 2, wo, 2, -1).amax(dim=(2, 4))
 
-    x [B, H, W, C], w [3, 3, C, O], b [O] -> [B, H/2, W/2, O] in x.dtype, or
-    int8 with ``s_next`` (tuple, len O: the next stage's scales). Quantizes
-    exactly as vqa_tpu's ``_xla_reference_i8`` (``s_x``: tuple = static
-    per-input-channel, float = static per-tensor, None = dynamic). The float
-    route of the TPU kernel (``int8=False``) is not ported: the model takes
-    this stage only for int8 stages.
+
+def conv3x3_f_plain(x, w, b):
+    """Kernel D's arithmetic in plain PyTorch, the float route's reference:
+    the semantics of vqa_tpu's Pallas ``_kernel`` with ``int8=False``.
+
+    The weights are rounded to x.dtype, every product of x.dtype operands is
+    summed in f32 (f32 matmuls, full f32: TF32 off as PyTorch's default),
+    the 2x2 pool is a max over the f32 sums, then + b in f32 (b is not
+    rounded to x.dtype, as ``_conv_hpack`` widens it), ReLU, one rounding to
+    x.dtype. It differs from vqa_tpu's CPU fallback ``_xla_reference``,
+    which rounds the conv to x.dtype before the bias.
     """
+    if x.is_cuda:
+        CONV3X3_F.plain_on_cuda += 1
+    w32 = w.to(x.device, x.dtype).float()
+    m = _pooled_conv_sums(x.float(), w32)
+    return torch.relu(m + b.to(x.device).float()).to(x.dtype)
+
+
+def conv3x3_f(x, w, b):
+    """Float conv3x3 (pad 1) + bias + ReLU + 2x2 maxpool (VALID: odd H/W floor).
+
+    ``x`` NHWC [B, H, W, C] float32 or bfloat16; ``w`` HWIO [3, 3, C, O]
+    (rounded to x.dtype) and ``b`` [O] (taken as f32), BN-folded. Returns
+    [B, H//2, W//2, O] in x.dtype. On the card C and O must be multiples of
+    8. Calls the operator ``vqa_tpu_torch::conv3x3_f`` (``ops.library``).
+    """
+    return torch.ops.vqa_tpu_torch.conv3x3_f(x, w, b)
+
+
+def conv3x3_f_operands(x, w, b):
+    """Kernel D's operands: the weights HWIO [3, 3, C, O] rounded to x.dtype
+    as [9, O, C] (each output channel's C contiguous: its ``mma.sync`` B
+    fragments are 32-bit words along K) and the bias as f32 [O]."""
+    kh, kw, c, o = w.shape
+    wk = w.to(x.device, x.dtype).reshape(kh * kw, c, o).transpose(1, 2).contiguous()
+    return wk, b.to(x.device, torch.float32).contiguous()
+
+
+def launch_conv3x3_f(x, wk, b32):
+    """Launch kernel D on operands already in its layout: ``x`` contiguous
+    NHWC on the card, ``wk``/``b32`` from :func:`conv3x3_f_operands`."""
+    bsz, h, wd, c = x.shape
+    o = wk.shape[1]
+    out = torch.empty((bsz, h // 2, wd // 2, o), dtype=x.dtype, device=x.device)
+    CONV3X3_F.launch(x.data_ptr(), wk.data_ptr(), b32.data_ptr(), out.data_ptr(),
+                     bsz, h, wd, c, o, _MODES[x.dtype])
+    return out
+
+
+def conv3x3_f_bound(x, w, plain):
+    """Kernel D's tolerance, per element of its output:
+    ``ulp(|plain|) + c * S``, S = sum_taps |x * w| (the plain sums on |x| and
+    |w|, the largest of the four pool phases, as the max takes one), ulp of
+    x.dtype and ``c = 2 (E_kernel + E_plain) 2^-23`` for K = 9 C:
+
+    - the plain version: 9 matmuls of C products in f32 and 8 adds, in any
+      order, each add rounded to nearest (within 2^-24 of a partial sum no
+      larger than S): E_plain = (C + 9) / 2;
+    - bf16: the products are exact in f32; the kernel adds them in
+      9 ceil(C / 16) ``mma.sync`` k16 steps of 16 products each. A tensor
+      core that aligns the 17 terms to the largest and truncates loses under
+      one unit of 2^-23 times that term (<= S) per term: E_kernel = 17 * 9
+      ceil(C / 16);
+    - f32 (3xTF32): hi and lo of each operand leave a product within 3 *
+      2^-22 |x w| (6 units of 2^-23), and the kernel takes 3 k8 MMAs of 8
+      exact TF32 products each per 8 channels and tap: E_kernel = 6 + 27 * 9
+      ceil(C / 8).
+
+    The factor 2 covers the rounding of each side's bias add and, in bf16,
+    a rounding to x.dtype that crosses a binade. At C = 64: c = 1.55e-4
+    (bf16) and 4.73e-4 (f32), a tensor core's worst case. In f32, at C = 32,
+    other round-to-nearest orders land over 1,000 times inside it and a
+    model of the kernel that truncates every add 10 to 45 times
+    (tests/test_torch_hpack_float.py).
+    """
+    c_in = x.shape[-1]
+    wa = w.to(x.device, x.dtype).abs().float()
+    sum_abs = _pooled_conv_sums(x.abs().float(), wa)
+    e_plain = (c_in + 9) / 2
+    if x.dtype == torch.bfloat16:
+        e_kernel = 17 * 9 * -(-c_in // 16)
+    else:
+        e_kernel = 6 + 27 * 9 * -(-c_in // 8)
+    return ulp(plain, x.dtype) + sum_abs * (2 * (e_kernel + e_plain) * 2.0 ** -23)
+
+
+def conv_bn_relu_pool(x, w, b, *, int8: bool = False, s_x=None, s_next=None):
+    """Pooled VGG stage: conv3x3(pad1) + (folded-BN) bias + ReLU + maxpool2x2.
+
+    x [B, H, W, C], w [3, 3, C, O], b [O] -> [B, H//2, W//2, O] in x.dtype,
+    or int8 with ``s_next`` (int8 only; tuple, len O: the next stage's
+    scales). ``int8=False`` (the default, as in vqa_tpu): kernel D's float
+    route (:func:`conv3x3_f`). ``int8``: quantizes exactly as vqa_tpu's
+    ``_xla_reference_i8`` (``s_x``: tuple = static per-input-channel, float
+    = static per-tensor, None = dynamic) and runs kernel B.
+    """
+    assert s_next is None or int8, "s_next is an int8-chain handoff"
     if not int8:
-        raise NotImplementedError(
-            "the float route of vqa_tpu/ops/conv_hpack.py:_kernel is not ported yet")
+        return conv3x3_f(x, w, b)
     x_q, s_c, s_out = activation_quant(x, s_x)
     w32 = w.float()
     if s_c is not None:

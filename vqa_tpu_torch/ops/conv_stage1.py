@@ -239,12 +239,18 @@ def conv0_f_bound(x, w, plain):
     """
     wa = w.to(x.device, x.dtype).abs().float()
     sum_abs = conv0_f_plain(x.abs().float(), wa, torch.zeros(wa.shape[-1], device=x.device))
-    mag = plain.float().abs()
-    bits, c = (8, 2.0 ** -17) if x.dtype == torch.bfloat16 else (24, 2.0 ** -15)
+    c = 2.0 ** -17 if x.dtype == torch.bfloat16 else 2.0 ** -15
+    return ulp(plain, x.dtype) + sum_abs * c
+
+
+def ulp(v: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """One unit in the last place of ``dtype`` (bfloat16 or float32) at
+    ``|v|``, as float32 (0 where v is 0)."""
+    mag = v.float().abs()
+    bits = 8 if dtype == torch.bfloat16 else 24
     _, e = torch.frexp(mag)                         # mag = m * 2^e, m in [0.5, 1)
-    ulp = torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - bits),
-                      torch.zeros_like(mag))
-    return ulp + sum_abs * c
+    return torch.where(mag > 0, torch.ldexp(torch.ones_like(mag), e - bits),
+                       torch.zeros_like(mag))
 
 
 def conv0_bn_relu_pool(x, w, b, *, int8: bool = False, s_x=None):
