@@ -13,8 +13,11 @@ without CUDA it exits non-zero before printing any result):
    per source, started together), time the build, and count the
    tensor-core instructions in each kernel's SASS (``cuobjdump -sass``:
    every function of kernels A and B must hold integer ones, every function
-   of kernels C and D float ones: HMMA, bf16 in the bf16 bodies, TF32 in the
-   f32 bodies; kernel E's two GEMM bodies HMMA);
+   of kernel C float ones (HMMA or HGMMA), every function of kernel D
+   warpgroup MMAs (HGMMA), kernel E's GEMM bodies HGMMA and its phase-(ii)
+   body tensor-core ones (HMMA or HGMMA)), and print each of D's and E's
+   functions' registers, stack and local bytes (``cuobjdump -res-usage``):
+   a stack frame or local memory in a function of kernel D (a spill) fails;
 3. kernel phase, at the attention model's 448² shapes and again at the
    baseline and bert models' 224² (conv0 224 -> 112, conv1 at 112, conv2-3
    at 56, conv4-5 at 28, conv6-7 at 14): each kernel mode of the serving and
@@ -51,7 +54,9 @@ without CUDA it exits non-zero before printing any result):
    versions, E's gradients equal (1e-6 of the largest) to autograd through
    ``coattention_reference`` for the same cotangent, and each mode timed as
    above (D's yardstick ``F.conv2d``, TF32 off in f32; E has none: one
-   PyTorch call does not compute its function);
+   PyTorch call does not compute its function), with the device time of
+   each of their CUDA kernels (D's one, E's GEMM, phase (ii) and pooling
+   launches) from ``torch.profiler``;
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
    requests with each model at full width and its own image size (attention
    448², baseline and bert 224²), batch 32, ``--opt_lvl 1`` (int8 stages
@@ -280,7 +285,9 @@ def bound(bytes_moved: int, ops: float, peak: float):
 
 def sass_counts():
     """Tensor-core instructions in each kernel's SASS (``cuobjdump -sass``),
-    by function: {source: {function: {opcode: count}}}."""
+    by function: {source: {function: {opcode: count}}}; checks them, and
+    prints kernels D's and E's registers, stack and local bytes (a spill in
+    kernel D fails)."""
     import shutil
     from vqa_tpu_torch import _build
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -309,16 +316,75 @@ def sass_counts():
             or not all(set(ops) & {"HMMA", "HGMMA"} for ops in c_funcs.values()):
         raise AssertionError("kernel B lacks integer tensor-core instructions, or a "
                              "function of kernel C float ones")
+    # kernel D: wgmma in both bodies; kernel E: wgmma in its GEMM (phase (i))
+    # bodies, tensor-core MMAs in its phase-(ii) body
     d_funcs = counts["conv3x3_f.cu"]
-    e_gemms = [ops for ops in counts["coattention_fwd.cu"].values() if "HMMA" in ops]
-    if len(d_funcs) < 2 or not all("HMMA" in ops for ops in d_funcs.values()) \
-            or len(e_gemms) < 2:
-        raise AssertionError("a function of kernel D, or one of kernel E's two GEMMs, lacks "
-                             "float tensor-core instructions")
+    e_funcs = counts["coattention_fwd.cu"]
+    e_gemms = [ops for fn, ops in e_funcs.items() if "coatt_gemm_kernel" in fn]
+    e_slices = [ops for fn, ops in e_funcs.items() if "coatt_slice_kernel" in fn]
+    if len(d_funcs) < 2 or not all("HGMMA" in ops for ops in d_funcs.values()):
+        raise AssertionError("a function of kernel D lacks warpgroup MMAs (HGMMA)")
+    if len(e_gemms) < 2 or not all("HGMMA" in ops for ops in e_gemms) or not e_slices \
+            or not all(set(ops) & {"HMMA", "HGMMA"} for ops in e_slices):
+        raise AssertionError("kernel E's GEMM bodies lack HGMMA, or its phase-(ii) body "
+                             "tensor-core instructions")
     a_funcs = counts["conv0_s2d_i8.cu"]
     if not a_funcs or not all(set(ops) & {"IMMA", "IGMMA"} for ops in a_funcs.values()):
         raise AssertionError("a function of kernel A lacks integer tensor-core instructions")
+    for source in ("conv3x3_f.cu", "coattention_fwd.cu"):
+        usage = resource_usage(tool, _build._lib_path(source))
+        for fn, res in usage.items():
+            print(f"resources {source} {fn}: registers {res['REG']}, stack {res['STACK']} B, "
+                  f"local {res['LOCAL']} B", flush=True)
+        if source == "conv3x3_f.cu" and (len(usage) < 2 or any(
+                res["STACK"] or res["LOCAL"] for res in usage.values())):
+            raise AssertionError(f"kernel D spills (stack or local bytes): {usage}")
     return counts
+
+
+def resource_usage(tool: str, lib: str):
+    """{function: {"REG": n, "STACK": bytes, "LOCAL": bytes, ...}} from
+    ``cuobjdump -res-usage``."""
+    out = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    usage, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name and "REG:" in line:
+            usage[name] = {k: int(v) for k, v in re.findall(r"(\w+):(\d+)", line)}
+            name = None
+    return usage
+
+
+def device_ms_by_kernel(fn, names, n=10):
+    """Mean device ms a call of ``fn`` spends in each CUDA kernel whose name
+    contains one of ``names``, from ``torch.profiler`` over ``n`` calls
+    (after a warm-up); None where the profiler saw no device time."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    key = "self_device_time_total" if avgs and hasattr(avgs[0], "self_device_time_total") \
+        else "self_cuda_time_total"
+    found = {}
+    for name in names:
+        us = sum(getattr(a, key) for a in avgs if name in a.key)
+        found[name] = us / 1e3 / n if us > 0 else None
+    return found
+
+
+def profile_line(label, times):
+    return f"device time by kernel {label}: " + ", ".join(
+        f"{name} {'not measured' if ms is None else f'{ms:.4f} ms'}"
+        for name, ms in times.items())
 
 
 class KernelRows:
@@ -644,14 +710,14 @@ def last_kernels_phase(dev, seq_len: int, card: str):
         ref = p()
         rows[image].check("conv3x3_f", label, tag, k(), ref, conv_hpack.conv3x3_f_bound(x, w, ref))
         del ref
-        wk, b32 = conv_hpack.conv3x3_f_operands(x, w, b)
+        wp, b32 = conv_hpack.conv3x3_f_operands(x, w, b)
         ms, lms, pms, disp = timings(
-            k, p, lambda: conv_hpack.launch_conv3x3_f(x, wk, b32),  # noqa: B023
+            k, p, lambda: conv_hpack.launch_conv3x3_f(x, wp, b32),  # noqa: B023
             lambda: library.CUDA_IMPLS["conv3x3_f"](x, w, b))       # noqa: B023
         cms = cudnn_conv_ms(x, w)
         out = k()
         bsz, h, wd, c = x.shape
-        moved, macs = nbytes(x, wk, b32, out), bsz * h * wd * 9 * c * w.shape[-1]
+        moved, macs = nbytes(x, w, b32, out), bsz * h * wd * 9 * c * w.shape[-1]
         if label == "bf16":
             bms, by = bound(moved, 2.0 * macs, BF16_FLOPS)
             cc = ""
@@ -660,6 +726,9 @@ def last_kernels_phase(dev, seq_len: int, card: str):
             cc_ms, cc_by = bound(moved, 2.0 * macs, F32_FLOPS)
             cc = f"; CUDA-core f32 bound {cc_ms:.4f} ms ({cc_by})"
         del out
+        prof = device_ms_by_kernel(lambda: conv_hpack.launch_conv3x3_f(x, wp, b32),  # noqa: B023
+                                   ["conv3x3_f_kernel"])
+        print(profile_line(f"conv3x3_f {tag}", prof), flush=True)
         rows[image].record("conv3x3_f", label, ms, lms, pms, bms, by, cms, disp)
         print(f"time conv3x3_f {tag}: wrapper {ms:.4f} ms, launch {lms:.4f} ms "
               f"({2.0 * macs / (lms * 1e-3) / 1e12:.1f} TFLOP/s), plain {pms:.4f} ms, F.conv2d "
@@ -705,6 +774,10 @@ def last_kernels_phase(dev, seq_len: int, card: str):
         else:
             ops = (in_ops + f32_ops) * 3 * BF16_FLOPS / TF32_FLOPS
         outs = k()
+        prof = device_ms_by_kernel(lambda: ck.launch_coattention_fwd(v, q, *ops_k),  # noqa: B023
+                                   ["coatt_gemm_kernel", "coatt_slice_kernel",
+                                    "coatt_pool_kernel"])
+        print(profile_line(f"coattention_fwd {tag}", prof), flush=True)
         bms, by = bound(nbytes(v, q, *ops_k, *outs), ops, BF16_FLOPS)
         rows[IMAGE].record("coattention_fwd", label, ms, lms, pms, bms, by, None, disp)
         print(f"time coattention_fwd {tag}: wrapper {ms:.4f} ms, launch {lms:.4f} ms, plain "

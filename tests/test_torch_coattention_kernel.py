@@ -17,8 +17,9 @@ invariance).
 B = 6 is not a multiple of the TPU kernel's batch block of 4. On the card,
 kernel E is held to ``coattention_plain`` within ``coattention_bound``
 (tests/test_torch_kernels.py, chip_smoke.py); that bound is checked here
-against the same function in float64 and with its products split as the
-kernel's 3xTF32 takes them.
+against the same function in float64, with its projections split as the
+kernel's 3xTF32 takes them, and as the kernel computes it (3xTF32 in both
+phases, partial scores per slice of D summed in slice order).
 """
 
 import importlib.util
@@ -142,21 +143,57 @@ def _plain_variant(x, q, wv_, bv, wq_, bq, sv, sq, how):
     return (av[..., None, :] @ x[:, None]).squeeze(-2), (aq[..., None, :] @ q).squeeze(-2)
 
 
-@pytest.mark.parametrize("how", ["float64", "3xtf32"])
+def _as_kernel_e(x, q, wv_, bv, wq_, bq, sv, sq):
+    """Kernel E's f32 arithmetic (csrc/coattention_fwd.cu): the projections
+    and Q V^T in 3xTF32; then per slice of ``ck.SLICE`` columns of D (the
+    last one ragged) C^T (W_q Q) and C (W_v V) in 3xTF32, + W_v V or W_q Q,
+    tanh, the dot with the slice of w_v or w_q in f32; the slices' partial
+    scores summed in slice order in f32; f32 softmaxes and pooled sums."""
+    vw = _mm_3xtf32(x, wv_) + bv
+    qw = _mm_3xtf32(q, wq_) + bq
+    c = torch.tanh(_mm_3xtf32(q, x[:, None].transpose(-1, -2)))      # [B, 3, L, S]
+    d = x.shape[-1]
+    score_v = score_q = None
+    for d0 in range(0, d, ck.SLICE):
+        sl = slice(d0, min(d0 + ck.SLICE, d))
+        hv = torch.tanh(vw[:, None, :, sl] + _mm_3xtf32(c.transpose(-1, -2), qw[..., sl]))
+        hq = torch.tanh(qw[..., sl] + _mm_3xtf32(c, vw[:, None, :, sl]))
+        pv = (hv * sv.reshape(-1)[sl]).sum(-1)
+        pq = (hq * sq.reshape(-1)[sl]).sum(-1)
+        score_v = pv if score_v is None else score_v + pv
+        score_q = pq if score_q is None else score_q + pq
+    av, aq = torch.softmax(score_v, -1), torch.softmax(score_q, -1)
+    return (av[..., None, :] @ x[:, None]).squeeze(-2), (aq[..., None, :] @ q).squeeze(-2)
+
+
+# the plain version's function in float64 and with 3xTF32 projections at D
+# 128; a model of kernel E's f32 arithmetic (3xTF32 in both phases, partial
+# scores per slice of 64 columns summed in slice order) at D 32 (one ragged
+# slice), 96 (a ragged second slice) and 512 (the model's width)
+KERNEL_E_BOUND_CASES = {"float64": ("float64", 128), "3xtf32": ("3xtf32", 128),
+                        "kernel_e-d32": ("kernel_e", 32), "kernel_e-d96": ("kernel_e", 96),
+                        "kernel_e-d512": ("kernel_e", 512)}
+
+
+@pytest.mark.parametrize("how", list(KERNEL_E_BOUND_CASES))
 def test_kernel_e_bound_covers_other_arithmetic(how):
     """``coattention_bound`` holds the plain version's function computed in
-    float64 and with 3xTF32 projections, with the attention model's weight
-    init (uniform, 1 / sqrt(D)) and V, Q at the scales of its features, at
-    D 128, and is not vacuous."""
+    float64, with 3xTF32 projections and as kernel E computes it, with the
+    attention model's weight init (uniform, 1 / sqrt(D)) and V, Q at the
+    scales of its features, and is not vacuous."""
+    arith, d = KERNEL_E_BOUND_CASES[how]
     g = torch.Generator().manual_seed(3)
-    b, s, l, d = 2, 49, 7, 128
+    b, s, l = 2, 49, 7
     lim = 1 / math.sqrt(d)
     wv_, bv, wq_, bq, sv, sq = ((torch.rand(sh, generator=g) * 2 - 1) * lim
                                 for sh in ((d, d), (d,), (d, d), (d,), (d, 1), (d, 1)))
     x = torch.relu(torch.randn((b, s, d), generator=g)) * 5
     q = torch.randn((b, 3, l, d), generator=g) * 2
     out_v, out_q = ck.coattention_plain(x, q, wv_, bv, wq_, bq, sv, sq)
-    other = _plain_variant(x, q, wv_, bv, wq_, bq, sv, sq, how)
+    if arith == "kernel_e":
+        other = _as_kernel_e(x, q, wv_, bv, wq_, bq, sv, sq)
+    else:
+        other = _plain_variant(x, q, wv_, bv, wq_, bq, sv, sq, arith)
     for out, o, bound in zip((out_v, out_q), other, ck.coattention_bound(x, q, out_v, out_q)):
         diff = (o.double() - out.double()).abs()
         assert bool((diff <= bound).all()), float((diff - bound).max())

@@ -102,13 +102,14 @@ def _add_rz(a, b):
 
 
 def _as_kernel_d(x, w, b, truncate):
-    """Kernel D's arithmetic (csrc/conv3x3_f.cu) in PyTorch: K in chunks of
-    16 bf16 or 8 f32 channels, the nine taps of a chunk in turn, one MMA a
-    tap in bf16 and three in f32 (3xTF32: lo_x hi_w, hi_x lo_w, hi_x hi_w,
-    each operand split into rna_tf32 hi and lo). An MMA adds its exact
-    products to the f32 accumulator rounded once to nearest, or
-    (``truncate``) one at a time, each add rounded toward zero. Then the
-    2x2 max, + b, ReLU, the rounding to x.dtype."""
+    """Kernel D's arithmetic (csrc/conv3x3_f.cu) in PyTorch, in its add
+    grouping: K in chunks of 16 bf16 or 8 f32 channels (32 bytes, one wgmma
+    k-step), the nine taps of a chunk in turn, one wgmma k16 a tap in bf16
+    and three k8 in f32 (3xTF32: lo_x hi_w, hi_x lo_w, hi_x hi_w, each
+    operand split into rna_tf32 hi and lo). An MMA adds its exact products
+    to the f32 accumulator rounded once to nearest, or (``truncate``) one
+    at a time, each add rounded toward zero. Then the 2x2 max, + b, ReLU,
+    the rounding to x.dtype."""
     bsz, h, wd, c = x.shape
     ho, wo = h // 2, wd // 2
     bf16 = x.dtype == torch.bfloat16

@@ -12,8 +12,9 @@ another order (in f32 through 3xTF32): kernel C is held within
 ``conv_stage1.conv0_f_bound``, kernel D within ``conv_hpack.conv3x3_f_bound``
 and kernel E within ``coattention_kernel.coattention_bound``. Without a card
 those tests skip; the dispatch contract, the weight layouts, a model of
-kernel C's 3xTF32 arithmetic and the soundness of that bound run everywhere
-(kernel D's and E's bounds: tests/test_torch_hpack_float.py and
+kernel C's 3xTF32 arithmetic and the soundness of that bound, and a model of
+kernel D's shared-memory descriptor addressing run everywhere (kernel D's
+and E's bounds: tests/test_torch_hpack_float.py and
 tests/test_torch_coattention_kernel.py).
 """
 
@@ -325,6 +326,147 @@ def test_kernel_c_f32_weight_layout_matches_index_formula():
                         assert abs(got - want) <= 2.0 ** -22 * abs(want)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernel_d_weight_layout_matches_index_formula(dtype):
+    """``pack_conv3x3_f_weights``: wp[p, k, (s,) t, n, h, r, i] = part_s of
+    w[t // 3, t % 3, CK k + E h + i, N p + 8 n + r] (E values of 16 bytes,
+    CK = 2 E, N the slice), zero past C and O; in f32 hi is rna_tf32(w),
+    both parts TF32, and hi + lo rebuilds w within 2^-22 relative."""
+    dt = TORCH_DT[dtype]
+    rng = np.random.default_rng(15)
+    c, o = 40, 200                               # a ragged last K chunk and slice
+    w = torch.from_numpy((rng.standard_normal((3, 3, c, o))
+                          * 10.0 ** rng.uniform(-3, 3, (3, 3, c, o))).astype(np.float32))
+    wp = conv_hpack.pack_conv3x3_f_weights(w, dt)
+    e, n = (8 if dtype == "bfloat16" else 4), conv_hpack.CONV3X3_F_SLICE
+    nch, slices = -(-c // (2 * e)), -(-o // n)
+    parts = [wp] if dtype == "bfloat16" else [wp[:, :, 0], wp[:, :, 1]]
+    for part in parts:
+        assert tuple(part.shape) == (slices, nch, 9, n // 8, 2, 8, e) and part.dtype == dt
+    assert wp.is_contiguous()
+    p, k, t, nn, h, r, i = (torch.from_numpy(rng.integers(0, m, 4000))
+                            for m in (slices, nch, 9, n // 8, 2, 8, e))
+    ci, oi = 2 * e * k + e * h + i, n * p + 8 * nn + r
+    valid = (ci < c) & (oi < o)
+    want = torch.where(valid, w.to(dt)[t // 3, t % 3, ci.clamp(max=c - 1), oi.clamp(max=o - 1)],
+                       torch.zeros((), dtype=dt))
+    assert bool((~valid).any())
+    if dtype == "bfloat16":
+        assert torch.equal(wp[p, k, t, nn, h, r, i], want)
+        return
+    hi, lo = wp[p, k, 0, t, nn, h, r, i], wp[p, k, 1, t, nn, h, r, i]
+    assert torch.equal(hi, _tf32_rna(want))
+    for part in (hi, lo):
+        assert int((part.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    err = (hi.double() + lo.double() - want.double()).abs()
+    assert bool((err <= 2.0 ** -22 * want.double().abs()).all())
+
+
+# kernel D's shared-memory geometry (csrc/conv3x3_f.cu): a K half of the halo
+# is [10][34] pixels x 16 bytes, padded to 128-byte alignment
+_D_HALO_W, _D_HALF = 34, (10 * 34 * 16 + 127) // 128 * 128
+
+
+def _kernel_d_sums(x, w, b, ty, tx, dtype):
+    """Kernel D's conv sums of one tile (8 conv rows x 32 columns from (8 ty,
+    32 tx)) and every output channel, read as its wgmma descriptors address
+    shared memory: per K chunk, the halo as two TMA boxes of 16 bytes x 34 x
+    10 (zeros outside the image) at [K half][pixel], A of warpgroup wg and
+    tap (ky, kx) from start 8 wg + ky 34 + kx pixels with LBO = one K half
+    and SBO = one halo row, M row m = core matrix m // 8, row m % 8; B from
+    the packed slice with LBO 128 and SBO 256 bytes, a tap 32 N bytes on,
+    lo 9 taps on (f32); each 32-byte K row a (bf16) or three (3xTF32: lo_x
+    hi_w, hi_x lo_w, hi_x hi_w) products summed in float64. Returns
+    [8, 32, O]: conv pixel (8 ty + r, 32 tx + 8 wg + m % 8) at row r = m // 8."""
+    dt = TORCH_DT[dtype]
+    bsz, h, wd, c = x.shape
+    o = w.shape[-1]
+    e, n = (8 if dtype == "bfloat16" else 4), conv_hpack.CONV3X3_F_SLICE
+    wp = conv_hpack.pack_conv3x3_f_weights(w, dt)
+    nch, parts = wp.shape[1], 1 if dtype == "bfloat16" else 2
+    xs = x.to(dt)
+    if dtype == "float32":
+        xh = _tf32_rna(xs)
+        halos = [xh, _tf32_rna(xs - xh)]              # hi, lo (split once a stage)
+    else:
+        halos = [xs]
+    tap_bytes = n * 32
+    out = np.zeros((8, 32, wp.shape[0] * n))
+    m = np.arange(64)
+    kb = np.arange(32)
+    for k in range(nch):
+        smem = []
+        for part in halos:                            # the stage: two K halves
+            buf = np.zeros(2 * _D_HALF, np.uint8)
+            for half in range(2):
+                box = torch.zeros((10, 34, e), dtype=dt)
+                c0 = 2 * e * k + e * half
+                for yy in range(10):
+                    for xx in range(34):
+                        iy, ix = 8 * ty - 1 + yy, 32 * tx - 1 + xx
+                        if 0 <= iy < h and 0 <= ix < wd:
+                            vals = part[b, iy, ix, c0:c0 + e]
+                            box[yy, xx, :vals.shape[0]] = vals
+                raw = box.contiguous().view(torch.uint8).numpy().reshape(-1)
+                buf[half * _D_HALF:half * _D_HALF + raw.size] = raw
+            smem.append(buf)
+        for p in range(wp.shape[0]):
+            wb = wp[p, k].contiguous().view(torch.uint8).numpy().reshape(-1)
+            for wg in range(4):
+                for tap in range(9):
+                    ky, kx = divmod(tap, 3)
+                    start = (8 * wg + ky * _D_HALO_W + kx) * 16
+                    # A [64, 32 bytes]: address = start + (kb // 16) LBO + (m // 8) SBO + (m % 8) 16 + kb % 16
+                    a_addr = (start + (kb // 16)[None] * _D_HALF + (m // 8)[:, None] * _D_HALO_W * 16
+                              + (m % 8)[:, None] * 16 + (kb % 16)[None])
+                    nn = np.arange(n)
+                    b_addr = (tap * tap_bytes + (kb // 16)[None] * 128 + (nn // 8)[:, None] * 256
+                              + (nn % 8)[:, None] * 16 + (kb % 16)[None])
+
+                    def val(buf, addr):
+                        return torch.from_numpy(np.ascontiguousarray(buf[addr])).view(dt).double()
+
+                    if dtype == "bfloat16":
+                        terms = [(val(smem[0], a_addr), val(wb, b_addr))]
+                    else:
+                        lo_w = b_addr + 9 * tap_bytes
+                        terms = [(val(smem[1], a_addr), val(wb, b_addr)),
+                                 (val(smem[0], a_addr), val(wb, lo_w)),
+                                 (val(smem[0], a_addr), val(wb, b_addr))]
+                    for av, bv in terms:                  # [64, E32] x [N, E32]
+                        s = (av @ bv.T).numpy()           # M rows x N
+                        out[m // 8, 8 * wg + m % 8, p * n:(p + 1) * n] += s
+    return out[..., :o]
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernel_d_descriptors_reproduce_conv_sums(dtype):
+    """A model of kernel D's shared-memory addressing (halo boxes, per-tap
+    descriptor starts, LBO/SBO, 32-byte K rows, the packed B slices) gives
+    the conv's sums at an interior tile and at a tile that crosses the
+    image's right and bottom edges, with C 24 (a zero-filled K half in bf16)
+    and O 40 (a partial slice): to float64 rounding in bf16, within the
+    3xTF32 split's 3 * 2^-22 sum |x w| in f32."""
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal((2, 12, 40, 24)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((3, 3, 24, 40)) * 0.2).astype(np.float32))
+    dt = TORCH_DT[dtype]
+    xd, wd_ = x.to(dt).double(), w.to(dt).double()
+    xp = F.pad(xd, (0, 0, 1, 1, 1, 1))
+    conv = sum(xp[:, ky:ky + 12, kx:kx + 40] @ wd_[ky, kx] for ky in range(3) for kx in range(3))
+    absc = sum(xp[:, ky:ky + 12, kx:kx + 40].abs() @ wd_[ky, kx].abs()
+               for ky in range(3) for kx in range(3))
+    for b, ty, tx in ((0, 0, 0), (1, 1, 1)):
+        got = _kernel_d_sums(x, w, b, ty, tx, dtype)
+        rows = slice(8 * ty, min(8 * ty + 8, 12))
+        cols = slice(32 * tx, min(32 * tx + 32, 40))
+        nr, nc = rows.stop - rows.start, cols.stop - cols.start
+        want, scale = conv[b, rows, cols].numpy(), absc[b, rows, cols].numpy()
+        tol = 1e-12 * scale if dtype == "bfloat16" else 3 * 2.0 ** -22 * scale + 1e-12
+        assert np.all(np.abs(got[:nr, :nc] - want) <= tol)
+        assert float(np.abs(want).max()) > 0
+
+
 def _add_rz(a, b):
     """a + b in f32, rounded toward zero (from the exact sum in float64)."""
     s = a.double() + b.double()
@@ -610,7 +752,9 @@ def test_kernel_c_matches_plain_on_card(cuda, mode, shape):
 @pytest.mark.cuda
 def test_kernels_repeat_bit_for_bit_on_card(cuda):
     """Two launches of each kernel on the same inputs give the same bits
-    (no atomics, no split sums): resumed training stays exact."""
+    (no atomics, no split sums): resumed training stays exact. Kernel D at a
+    shape whose persistent blocks walk several tiles, kernel E with 8
+    slices of D a sample and level."""
     g = torch.Generator().manual_seed(3)
     x0 = torch.randint(-127, 128, (2, 36, 70, 3), generator=g, dtype=torch.int8).to(cuda)
     w0 = torch.randint(-127, 128, (3, 3, 3, 64), generator=g, dtype=torch.int8).to(cuda)
@@ -624,9 +768,9 @@ def test_kernels_repeat_bit_for_bit_on_card(cuda):
                                              out_dtype=torch.bfloat16),
              lambda: conv_stage1.conv0_f(xf.bfloat16(), wf, s64),
              lambda: conv_stage1.conv0_f(xf, wf, s64)]
-    x3 = torch.randn((2, 13, 22, 64), generator=g).to(cuda)
+    x3 = torch.randn((4, 100, 130, 64), generator=g).to(cuda)     # blocks walk several tiles
     w3 = (torch.randn((3, 3, 64, 128), generator=g) * 0.05).to(cuda)
-    v, q, params = _kernel_e_inputs((2, 49, 7, 64), g, cuda)
+    v, q, params = _kernel_e_inputs((2, 49, 7, 512), g, cuda)
     calls += [lambda: conv_hpack.conv3x3_f(x3.bfloat16(), w3, s256[:128]),
               lambda: conv_hpack.conv3x3_f(x3, w3, s256[:128]),
               lambda: torch.cat(coattention_kernel.coattention_fwd(v.bfloat16(), q.bfloat16(),
@@ -640,13 +784,18 @@ def test_kernels_repeat_bit_for_bit_on_card(cuda):
 
 # (shape (B, H, W), C_in, C_out): odd H and W (pooled 9 x 18, partial 4 x
 # 16 tiles, the last row and column of conv outputs unused); C_out 200 (a
-# second block of 128 channels, 72 of them stored) with C_in 96 (3 chunks of
-# bf16 and 12 of f32); C 8 (one chunk, zero-filled
-# past C); VGG conv1 at 224² (x [2, 112, 112, 64]) and at 448² (x [1, 224,
-# 224, 64])
+# second slice of 128 channels, 72 of them stored) with C_in 96 (6 chunks of
+# bf16 and 12 of f32: the weights stream with the halo, they do not fit
+# beside it); C 8 (one chunk, zero-filled past C); VGG conv1 at 224² (x [2,
+# 112, 112, 64]) and at 448² (x [1, 224, 224, 64]), whose weights stay
+# resident in bf16; VGG conv7 at 448² (C = C_out = 512 at 28², 4 slices, 32
+# chunks of bf16 and 64 of f32); 4 images at pooled 50 x 65: 260 tiles of
+# 4 x 16 pooled pixels (f32) or 520 of 4 x 8 (bf16, two streams), over 132
+# persistent blocks on an H100, a count that is no multiple of them
 KERNEL_D_CASES = {"odd": ((2, 19, 37), 64, 128), "channels_96_200": ((2, 12, 20), 96, 200),
                   "channels_8": ((1, 6, 10), 8, 8), "conv1_224": ((2, 112, 112), 64, 128),
-                  "conv1_448": ((1, 224, 224), 64, 128)}
+                  "conv1_448": ((1, 224, 224), 64, 128), "conv7_28": ((2, 28, 28), 512, 512),
+                  "tiles_260": ((4, 100, 130), 64, 128)}
 
 
 @pytest.mark.cuda
@@ -684,9 +833,10 @@ def _kernel_e_inputs(shape, g, device):
 
 # (B, S, L, D): the attention model's shape at b32 (S 196 = 14², L 23) and at
 # b3 with S 49 (224²); B 6 (not a multiple of the TPU kernel's block of 4)
-# at a small width; S 7 and L 1 (odd, a single word)
+# at a small width (one slice of D, 32 wide); S 7 and L 1 (odd, a single
+# word); D 96 (a slice of 64 and a ragged one of 32)
 KERNEL_E_CASES = {"b32": (32, 196, 23, 512), "s49": (3, 49, 23, 512),
-                  "small": (6, 16, 5, 32), "odd": (1, 7, 1, 64)}
+                  "small": (6, 16, 5, 32), "odd": (1, 7, 1, 64), "d96": (4, 49, 23, 96)}
 
 
 @pytest.mark.cuda

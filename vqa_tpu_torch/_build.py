@@ -3,8 +3,9 @@
 Each ``csrc/*.cu`` file exports a plain C launcher that returns
 ``cudaGetLastError()`` after its launch. It is compiled on its own into
 ``build/vqa_tpu_torch/<name>.<hash>.so`` (``-gencode arch=compute_90a,
-code=sm_90a``, ``-fmad=false``), keyed by the source's content hash, so an
-edited source never loads a stale library. :func:`build_all` starts one nvcc
+code=sm_90a``, ``-fmad=false``), keyed by the content hash of the source and
+of the shared headers (``csrc/*.cuh``), so an edited source never loads a
+stale library. :func:`build_all` starts one nvcc
 per source at once; a file lock beside each library keeps processes that
 start together (the ranks of one host) from building it twice. Nothing
 here runs when the module is imported.
@@ -44,8 +45,13 @@ def _nvcc() -> str:
 
 
 def _lib_path(source: str) -> str:
-    with open(os.path.join(CSRC, source), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path, keyed by the source, the headers it may include
+    (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in [source] + sorted(n for n in os.listdir(CSRC) if n.endswith(".cuh")):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"{os.path.splitext(source)[0]}.{digest}.so")
 
 
@@ -155,7 +161,7 @@ CONV3X3_F = CudaKernel(
 
 COATTENTION_FWD = CudaKernel(
     "coattention_fwd.cu", "coattention_fwd",
-    [_P] * 13 + [_I, _I, _I, _I, _I, _P],
+    [_P] * 14 + [_I, _I, _I, _I, _I, _P],
     replaces="tools/retired/coattention_kernel.py:45 (_kernel)")
 
 KERNELS = (CONV0_S2D_I8, CONV3X3_I8, CONV0_F, CONV3X3_F, COATTENTION_FWD)

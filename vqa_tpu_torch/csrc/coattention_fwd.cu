@@ -15,51 +15,66 @@
 //
 // The TPU kernel keeps a block of 4 samples resident in VMEM. On the H100 a
 // sample's V alone is 401 KB in f32 at S 196, D 512, over the 227 KB of
-// shared memory a block can have, so the work is cut in two launches:
+// shared memory a block can have, so the work is cut in three launches:
 //   (i) the projections as one tiled GEMM launch over three problems: W_v V
-//       + b_v [B*S, D], W_q Q + b_q [B*3L, D] and the affinities' pre-tanh
-//       Q V^T [3L, S] of every sample, into f32 scratch the wrapper
-//       allocates (12.8 MB at b32, which the 50 MB L2 keeps). A block is 8
-//       warps over a 128 x 128 output tile (a warp 32 x 64, two m16 and eight
-//       n8 tiles), K in chunks of 8 32-bit words (16 bf16 or 8 f32 values)
-//       through a 3-stage cp.async ring, rows 12 words apart (conflict-free
-//       fragment loads). bf16: mma.sync.m16n8k16 with f32 sums; f32: 3xTF32
-//       (hi = rna_tf32(v), lo = rna_tf32(v - hi); lo hi + hi lo + hi hi on
-//       mma.sync.m16n8k8);
-//  (ii) one block per (level, sample): tanh(C) [L, S] in shared memory, then
-//       D in chunks of 32: the chunk of W_v V [S, 32] and of W_q Q [L, 32]
-//       are staged, each warp forms rows of H_v and H_q (a lane a column,
-//       f32 FMAs on the CUDA cores), multiplies them by w_v / w_q and adds the
-//       warp's sum to the row's score; then both softmaxes and the pooled
-//       sums over V and Q.
+//       + b_v [B*S, D], W_q Q + b_q [B*3L, D] and tanh(Q V^T) [3L, S] of
+//       every sample (tanh in that problem's epilogue), into f32 scratch the
+//       wrapper allocates (19 MB at b32, which the 50 MB L2 keeps). A block
+//       owns a 128 x 128 output tile: two consumer warpgroups (M = 64 each)
+//       on wgmma.m64n128 with both operands from shared memory, and a
+//       producer warp that brings each 128-byte K slice of A and of B by one
+//       TMA box each (128 rows, the 128-byte swizzle wgmma reads) into a
+//       ring of 3 stages that complete on mbarriers. bf16: wgmma k16, f32
+//       sums; f32: 3xTF32 at k8 (each stage split once, in place, into TF32
+//       hi and lo; lo hi + hi lo + hi hi, small terms first);
+//  (ii) one block per (D slice of 64 columns, level, sample): 768 blocks at
+//       b32, D 512. Its slices of C^T (W_q Q) [S, 64] and C (W_v V) [L, 64]
+//       are 3xTF32 products on the tensor cores (mma.sync.m16n8k8 TF32,
+//       the operands split into hi and lo as their fragments are loaded, an
+//       A fragment once for the n8 tiles it meets; the intermediates are f32
+//       in both modes, as on the TPU), on operands staged by cp.async. Each
+//       adds W_v V or W_q Q, applies tanh, takes the dot with its slice of
+//       w_v or w_q and writes the slice's partial scores;
+// (iii) one block per (level, sample, 32 columns of D): the partial scores
+//       summed over the slices in slice order, both softmaxes, and the
+//       pooled sums a_v^T V and a_q^T Q for its columns, by 8 groups of
+//       rows whose partial sums are added in group order.
 // What bounds it: at b32, S 196, L 23, D 512 it does 5.8 GFLOP and moves
-// 9.7 MB (bf16), so operations: 4.9 G of them on bf16 operands (the
-// projections and Q V^T), 0.9 G on f32 intermediates (H_v, H_q). Phase (ii)
-// runs those on the CUDA cores in 96 blocks, under one an SM: it is the
-// slow part of this first version. No atomics: deterministic.
+// 9.7 MB (bf16), so operations: 4.9 G of them on input-type operands (the
+// projections and Q V^T), 0.9 G on f32 intermediates (H_v, H_q). No atomics,
+// every sum in a fixed order: deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sm90.cuh"
 
 namespace {
 
 // ---- (i) the projections: out[m, n] = sum_k A[m, k] B[n, k] (+ bias[n]) ----
 
 constexpr int G_BM = 128, G_BN = 128;
-constexpr int G_KW = 8;                        // 32-bit words of K per stage
-constexpr int G_RS = G_KW + 4;                 // row stride (words)
-constexpr int G_THREADS = 256;
+constexpr int G_CONSUMERS = 256;               // 2 warpgroups
+constexpr int G_THREADS = G_CONSUMERS + 32;    // + the producer warp
 constexpr int G_STAGES = 3;
-constexpr int G_TILE_WORDS = G_BM * G_RS;      // one operand's tile
+constexpr int G_TILE = G_BM * 128;             // 128 rows x 128 bytes of K (16 KB)
+constexpr int G_KS = 4;                        // 32-byte k-steps a stage
+
+template <typename T> struct GLayout {
+  static constexpr bool F32 = sizeof(T) == 4;
+  static constexpr int KV = 128 / static_cast<int>(sizeof(T));   // K values a stage
+  // A then B (f32: their hi parts, split in place), then (f32) their lo parts
+  static constexpr int STAGE = (F32 ? 4 : 2) * G_TILE;
+  static constexpr int SMEM = 1024 + 1024 + G_STAGES * STAGE;   // + alignment, barriers
+};
 
 struct Gemm {
-  const void* a;        // [batch][M][K]
-  const void* b;        // [batch][N][K]
+  int amap, bmap;       // tensor maps of A [rows][K] and B [rows][K]
+  int a_stride, b_stride;   // rows between batches of A and of B
   const float* bias;    // [N] or null
   float* out;           // [batch][M][N]
-  int m, n, batch;
-  long long sa, sb, so; // batch strides (elements)
+  int m, n, batch, tanh_out;
   int first_tile;       // this problem's first block
 };
 
@@ -68,18 +83,140 @@ struct Gemms {
   int k;                // K (values)
 };
 
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+struct Maps {
+  CUtensorMap m[4];     // V [B*S, D], Q [B*3L, D], W_v^T [D, D], W_q^T [D, D]
+};
+
+template <typename T>
+__global__ void __launch_bounds__(G_THREADS, 1) coatt_gemm_kernel(
+    const __grid_constant__ Maps maps, const Gemms gp) {
+  using GL = GLayout<T>;
+  constexpr bool F32 = GL::F32;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;   // swizzled tiles: 1,024-byte aligned
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t full0 = base, empty0 = base + 8 * G_STAGES;
+  const uint32_t s_ring = base + 1024;
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+
+  int pi = 0;
+  while (pi < 2 && static_cast<int>(blockIdx.x) >= gp.p[pi + 1].first_tile) ++pi;
+  const Gemm& p = gp.p[pi];
+  const int tiles_m = (p.m + G_BM - 1) / G_BM, tiles_n = (p.n + G_BN - 1) / G_BN;
+  const int tile = blockIdx.x - p.first_tile;
+  const int bz = tile / (tiles_m * tiles_n), rem = tile % (tiles_m * tiles_n);
+  const int m0 = (rem / tiles_n) * G_BM, n0 = (rem % tiles_n) * G_BN;
+  const int nk = (gp.k + GL::KV - 1) / GL::KV;
+
+  if (t == 0) {
+    for (int s = 0; s < G_STAGES; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 1);
+      sm90::mbar_init(empty0 + 8 * s, G_CONSUMERS / 32);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == G_CONSUMERS / 32) {
+    if (lane == 0) {
+      const CUtensorMap* am = &maps.m[p.amap];
+      const CUtensorMap* bm = &maps.m[p.bmap];
+      const int arow = bz * p.a_stride + m0, brow = bz * p.b_stride + n0;
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % G_STAGES;
+        sm90::mbar_wait(empty0 + 8 * s, ((kt / G_STAGES) & 1) ^ 1);
+        const uint32_t st = s_ring + s * GL::STAGE, bar = full0 + 8 * s;
+        sm90::mbar_expect_tx(bar, 2 * G_TILE);
+        sm90::tma_load_2d(st, am, kt * GL::KV, arow, bar);
+        sm90::tma_load_2d(st + G_TILE, bm, kt * GL::KV, brow, bar);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, q = lane & 3;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  sm90::pin<64>(acc);
+#pragma unroll 1
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % G_STAGES;
+    sm90::mbar_wait(full0 + 8 * s, (kt / G_STAGES) & 1);
+    const uint32_t st = s_ring + s * GL::STAGE;
+    if (F32) {
+      // split A and B in place into TF32 hi, their lo parts beside them
+      // (swizzled as they are); the stage is the consumers' until released
+      float4* hi = reinterpret_cast<float4*>(gbase + (st - base));
+      float4* lo = hi + 2 * G_TILE / 16;
+      for (int i = t; i < 2 * G_TILE / 16; i += G_CONSUMERS) {
+        float4 l;
+        hi[i] = sm90::split4(hi[i], l);
+        lo[i] = l;
+      }
+      sm90::fence_async_shared();
+      sm90::named_barrier(1, G_CONSUMERS);
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < G_KS; ++j) {         // 32 bytes of K a step
+      const uint64_t da = sm90::desc_sw128(st + wg * 64 * 128 + 32 * j);
+      const uint64_t db = sm90::desc_sw128(st + G_TILE + 32 * j);
+      if constexpr (F32) {
+        constexpr uint32_t LO = (2 * G_TILE) >> 4;   // the lo parts, in 16-byte units
+        sm90::wgmma_tf32_n128(acc, da + LO, db, 1);    // lo_a hi_b
+        sm90::wgmma_tf32_n128(acc, da, db + LO, 1);    // hi_a lo_b
+        sm90::wgmma_tf32_n128(acc, da, db, 1);         // hi_a hi_b
+      } else {
+        sm90::wgmma_bf16_n128(acc, da, db, 1);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+    sm90::pin<64>(acc);
+    if (kt > 0) {                              // stage kt - 1's wgmmas are done
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty0 + 8 * ((kt - 1) % G_STAGES));
+    }
+  }
+  sm90::wgmma_wait<0>();
+  sm90::pin<64>(acc);
+
+  // Epilogue: the tile staged in the ring (every stage consumed), then
+  // written a row at a time, 32 lanes on consecutive columns.
+  // acc[4j + 2h + e]: row 64 wg + 16 w + g + 8 h, column 8 j + 2 q + e
+  sm90::named_barrier(1, G_CONSUMERS);
+  constexpr int TS = G_BN + 1;                 // staging row stride (floats)
+  float* staged = reinterpret_cast<float*>(gbase + (s_ring - base));
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        staged[(64 * wg + 16 * w + g + 8 * h) * TS + 8 * j + 2 * q + e] = acc[4 * j + 2 * h + e];
+  sm90::named_barrier(1, G_CONSUMERS);
+  float* out = p.out + static_cast<size_t>(bz) * p.m * p.n;
+  for (int r = warp; r < G_BM; r += G_CONSUMERS / 32) {
+    const int m = m0 + r;
+    if (m >= p.m) break;
+#pragma unroll
+    for (int c = lane; c < G_BN; c += 32) {
+      const int n = n0 + c;
+      if (n >= p.n) break;
+      float v = staged[r * TS + c];
+      if (p.bias) v = __fadd_rn(v, __ldg(p.bias + n));
+      if (p.tanh_out) v = tanhf(v);
+      out[static_cast<size_t>(m) * p.n + n] = v;
+    }
+  }
 }
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ---- (ii) one block per (D slice, level, sample): partial scores ----
+
+constexpr int A_THREADS = 256, A_WARPS = A_THREADS / 32;
+constexpr int DS = 64;                         // D slice: 8 n8 tiles
 
 __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
   asm volatile(
@@ -89,132 +226,184 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(__uint_as_float(v)));
-  return r & 0xffffe000u;
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(sm90::smem_addr(dst)), "l"(src) : "memory");
 }
 
-__device__ __forceinline__ void split(uint32_t v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(__float_as_uint(__fsub_rn(__uint_as_float(v), __uint_as_float(hi))));
+// 16 bytes global -> shared, or 16 zero bytes (src-size 0: nothing is read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(sm90::smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0) : "memory");
 }
 
-template <typename T>
-__global__ void __launch_bounds__(G_THREADS) gemm_kernel(Gemms gp) {
-  __shared__ __align__(16) uint32_t smem[G_STAGES][2][G_TILE_WORDS];
-  constexpr bool BF16 = sizeof(T) == 2;
-  int pi = 0;
-  while (pi < 2 && static_cast<int>(blockIdx.x) >= gp.p[pi + 1].first_tile) ++pi;
-  const Gemm& p = gp.p[pi];
-  const int tiles_m = (p.m + G_BM - 1) / G_BM, tiles_n = (p.n + G_BN - 1) / G_BN;
-  const int tile = blockIdx.x - p.first_tile;
-  const int bz = tile / (tiles_m * tiles_n), rem = tile % (tiles_m * tiles_n);
-  const int m0 = (rem / tiles_n) * G_BM, n0 = (rem % tiles_n) * G_BN;
-  const int kw = BF16 ? gp.k / 2 : gp.k;        // words of a row
-  const int nch = (kw + G_KW - 1) / G_KW;
-  const uint32_t* ag = static_cast<const uint32_t*>(p.a) + bz * p.sa / (BF16 ? 2 : 1);
-  const uint32_t* bg = static_cast<const uint32_t*>(p.b) + bz * p.sb / (BF16 ? 2 : 1);
+// an A fragment split into TF32 hi and lo (once, for every n8 tile it meets)
+__device__ __forceinline__ void split_frag(const float* a, uint32_t* ah, uint32_t* al) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float h, l;
+    sm90::split(a[i], h, l);
+    ah[i] = __float_as_uint(h);
+    al[i] = __float_as_uint(l);
+  }
+}
+
+// d += a b as 3xTF32: lo_a hi_b + hi_a lo_b + hi_a hi_b, small terms first
+__device__ __forceinline__ void mma_3xtf32(float* d, const uint32_t* ah, const uint32_t* al,
+                                           float b0, float b1) {
+  float bh0, bl0, bh1, bl1;
+  sm90::split(b0, bh0, bl0);
+  sm90::split(b1, bh1, bl1);
+  mma_tf32(d, al, __float_as_uint(bh0), __float_as_uint(bh1));
+  mma_tf32(d, ah, __float_as_uint(bl0), __float_as_uint(bl1));
+  mma_tf32(d, ah, __float_as_uint(bh0), __float_as_uint(bh1));
+}
+
+// vw [B, S, D], qw [B, 3L, D], ct = tanh(Q V^T) [B, 3L, S] (f32, from (i));
+// wv, wq [D]; part [B, 3, slices, S + L]: the slice's scores of H_v, then H_q.
+__global__ void __launch_bounds__(A_THREADS) coatt_slice_kernel(
+    const float* __restrict__ vw, const float* __restrict__ qw, const float* __restrict__ ct,
+    const float* __restrict__ wv, const float* __restrict__ wq, float* __restrict__ part,
+    int S, int L, int D) {
+  extern __shared__ float sm[];
+  const int sl = blockIdx.x, lvl = blockIdx.y, b = blockIdx.z, slices = gridDim.x;
+  const int d0 = sl * DS, nd = min(DS, D - d0), nt = nd / 8;   // D % 32 == 0: 4 or 8 tiles
+  float* cs = sm;                              // [L][S] tanh(C), padded to 16 bytes
+  float* vs = cs + (L * S + 3) / 4 * 4;        // [S][DS] the slice of W_v V + b_v
+  float* qs = vs + S * DS;                     // [L][DS] the slice of W_q Q + b_q
+  float* qpart = qs + L * DS;                  // [DS / 8][L] H_q's scores per n8 tile
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int mw = warp & 3, nw = warp >> 2;      // 4 warps along M, 2 along N
-  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(&smem[0][0][0]));
+  const size_t qrow0 = (static_cast<size_t>(b) * 3 + lvl) * L;   // first row of Q as [B*3L, D]
 
-  auto load_stage = [&](int stage, int ch) {
-    for (int i = t; i < 2 * G_BM * 2; i += G_THREADS) {
-      const int op = i / (G_BM * 2), row = (i >> 1) % G_BM, k = ch * G_KW + (i & 1) * 4;
-      const int r = (op ? n0 : m0) + row;
-      const bool ok = r < (op ? p.n : p.m) && k < kw;
-      const uint32_t* base = op ? bg : ag;
-      cp16(sbase + ((stage * 2 + op) * G_TILE_WORDS + row * G_RS + (i & 1) * 4) * 4,
-           ok ? base + static_cast<size_t>(r) * kw + k : base, ok);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < G_STAGES - 1; ++s) {
-    if (s < nch) load_stage(s, s);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  // every copy is issued before any is waited for (cp.async): one L2
+  // latency a block, not one a load; columns past the slice are zero
+  if ((qrow0 * S) % 4 == 0 && (L * S) % 4 == 0) {       // 16-byte pieces (S % 4 == 0)
+    for (int i = 4 * t; i < L * S; i += 4 * A_THREADS) cp_async16(cs + i, ct + qrow0 * S + i, true);
+  } else {
+    for (int i = t; i < L * S; i += A_THREADS) cp_async4(cs + i, ct + qrow0 * S + i);
   }
-#pragma unroll 1
-  for (int ch = 0; ch < nch; ++ch) {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(G_STAGES - 2) : "memory");
-    __syncthreads();
-    if (ch + G_STAGES - 1 < nch) load_stage((ch + G_STAGES - 1) % G_STAGES, ch + G_STAGES - 1);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const uint32_t* as = smem[ch % G_STAGES][0] + (mw * 32 + g) * G_RS + q;
-    const uint32_t* bs = smem[ch % G_STAGES][1] + (nw * 64 + g) * G_RS + q;
-    uint32_t a[2][4];
+  for (int i = t; i < S * (DS / 4); i += A_THREADS) {
+    const int r = i / (DS / 4), c = 4 * (i % (DS / 4));
+    cp_async16(vs + r * DS + c, vw + (static_cast<size_t>(b) * S + r) * D + d0 + c, c < nd);
+  }
+  for (int i = t; i < L * (DS / 4); i += A_THREADS) {
+    const int r = i / (DS / 4), c = 4 * (i % (DS / 4));
+    cp_async16(qs + r * DS + c, qw + (qrow0 + r) * D + d0 + c, c < nd);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  float* const pout = part + ((static_cast<size_t>(b) * 3 + lvl) * slices + sl) * (S + L);
+
+  // H_v rows s (M = S, N = the slice, K = L): A = C^T, B = W_q Q; a warp an
+  // m16 tile of rows and every n8 tile of the slice
+  for (int mt = warp; mt * 16 < S; mt += A_WARPS) {
+    const int s0 = mt * 16;
+    float acc[DS / 8][4];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const uint32_t* pa = as + mt * 16 * G_RS;
-      a[mt][0] = pa[0];
-      a[mt][1] = pa[8 * G_RS];
-      a[mt][2] = pa[4];
-      a[mt][3] = pa[8 * G_RS + 4];
-    }
-    if (BF16) {
+    for (int j = 0; j < DS / 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const uint32_t b0 = bs[j * 8 * G_RS], b1 = bs[j * 8 * G_RS + 4];
-        mma_bf16(acc[0][j], a[0], b0, b1);
-        mma_bf16(acc[1][j], a[1], b0, b1);
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int l0 = 0; l0 < L; l0 += 8) {
+      // A (m16 x k8): a0 (g, q), a1 (g + 8, q), a2 (g, q + 4), a3 (g + 8, q + 4)
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int s = s0 + g + 8 * (i & 1), l = l0 + q + 4 * (i >> 1);
+        a[i] = s < S && l < L ? cs[l * S + s] : 0.f;
       }
-    } else {
-      uint32_t ah[2][4], al[2][4];
+      uint32_t ah[4], al[4];
+      split_frag(a, ah, al);
+      const int l_lo = l0 + q, l_hi = l0 + q + 4;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) split(a[mt][r], ah[mt][r], al[mt][r]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        uint32_t bh0, bl0, bh1, bl1;
-        split(bs[j * 8 * G_RS], bh0, bl0);
-        split(bs[j * 8 * G_RS + 4], bh1, bl1);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {   // small terms first
-          mma_tf32(acc[mt][j], al[mt], bh0, bh1);
-          mma_tf32(acc[mt][j], ah[mt], bl0, bl1);
-          mma_tf32(acc[mt][j], ah[mt], bh0, bh1);
-        }
+      for (int j = 0; j < DS / 8; ++j) {
+        if (j >= nt) break;
+        const float b0 = l_lo < L ? qs[l_lo * DS + 8 * j + g] : 0.f;
+        const float b1 = l_hi < L ? qs[l_hi * DS + 8 * j + g] : 0.f;
+        mma_3xtf32(acc[j], ah, al, b0, b1);
       }
     }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-
-  // acc[mt][j][2 h + e]: row m0 + 32 mw + 16 mt + g + 8 h, column n0 + 64 nw + 8 j + 2 q + e
-  float* out = p.out + bz * p.so;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+    // acc[j][2h + e]: row s0 + g + 8h, column 8j + 2q + e
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int m = m0 + 32 * mw + 16 * mt + g + 8 * h;
-      if (m >= p.m) continue;
+      const int s = s0 + g + 8 * h;
+      float sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < DS / 8; ++j) {
+        if (j >= nt) break;
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int n = n0 + 64 * nw + 8 * j + 2 * q + e;
-          if (n < p.n)
-            out[static_cast<size_t>(m) * p.n + n] =
-                p.bias ? __fadd_rn(acc[mt][j][2 * h + e], __ldg(p.bias + n)) : acc[mt][j][2 * h + e];
+          const int c = 8 * j + 2 * q + e;
+          const float hv = tanhf(__fadd_rn(s < S ? vs[s * DS + c] : 0.f, acc[j][2 * h + e]));
+          sum = __fadd_rn(sum, __fmul_rn(hv, __ldg(wv + d0 + c)));
         }
+      }
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+      sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+      if (q == 0 && s < S) pout[s] = sum;
     }
+  }
+
+  // H_q rows l (M = L, N = the slice, K = S): A = C, B = W_v V; a warp an
+  // m16 tile and the n8 tiles jg and jg + 4 (one split of A for both), its
+  // row sums staged per n8 tile
+  const int mtq = (L + 15) / 16;
+  for (int pr = warp; pr < mtq * 4; pr += A_WARPS) {
+    const int l0 = (pr >> 2) * 16, jg = pr & 3;
+    const bool two = jg + 4 < nt;
+    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+    for (int k0 = 0; k0 < S; k0 += 8) {
+      float a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int l = l0 + g + 8 * (i & 1), s = k0 + q + 4 * (i >> 1);
+        a[i] = l < L && s < S ? cs[l * S + s] : 0.f;
+      }
+      uint32_t ah[4], al[4];
+      split_frag(a, ah, al);
+      const int s_lo = k0 + q, s_hi = k0 + q + 4;
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        if (x == 1 && !two) break;             // warp-uniform
+        const int j = jg + 4 * x;
+        const float b0 = s_lo < S ? vs[s_lo * DS + 8 * j + g] : 0.f;
+        const float b1 = s_hi < S ? vs[s_hi * DS + 8 * j + g] : 0.f;
+        mma_3xtf32(acc[x], ah, al, b0, b1);
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      if (x == 1 && !two) break;
+      const int j = jg + 4 * x;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int l = l0 + g + 8 * h;
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * q + e;
+          const float hq = tanhf(__fadd_rn(l < L ? qs[l * DS + c] : 0.f, acc[x][2 * h + e]));
+          sum = __fadd_rn(sum, __fmul_rn(hq, __ldg(wq + d0 + c)));
+        }
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 1));
+        sum = __fadd_rn(sum, __shfl_xor_sync(0xffffffffu, sum, 2));
+        if (q == 0 && l < L) qpart[j * L + l] = sum;
+      }
+    }
+  }
+  __syncthreads();
+  for (int l = t; l < L; l += A_THREADS) {
+    float sum = 0.f;
+    for (int j = 0; j < nt; ++j) sum = __fadd_rn(sum, qpart[j * L + l]);
+    pout[S + l] = sum;
+  }
 }
 
-// ---- (ii) one block per (level, sample) ----
+// ---- (iii) softmaxes and pooled sums ----
 
-constexpr int A_THREADS = 256, A_WARPS = A_THREADS / 32;
-constexpr int DC = 32;                         // D chunk: a lane a column
-constexpr int ROWS = 4;                        // rows a warp forms at once
+// a block: 32 columns of D x 8 groups of rows, each group's partial sums
+// added in group order
+constexpr int P_COLS = 32, P_GROUPS = 8, P_THREADS = P_COLS * P_GROUPS;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -228,35 +417,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// rows [r0, r0 + ROWS) of tanh(base + A^T B) . w for one D chunk, a lane a
-// column: acc_r = sum_k A[k][r0 + r] B[k][lane] (A rows lda apart), then
-// score[r] += warp sum of tanh(base[r][lane] + acc_r) w
-__device__ __forceinline__ void score_rows(const float* A, int lda, int nk, const float* B,
-                                           const float* base, float w, float* score,
-                                           int r0, int nrows, int lane) {
-  float acc[ROWS] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < nk; ++k) {
-    const float bk = B[k * DC + lane];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) acc[r] = __fmaf_rn(A[k * lda + r0 + r], bk, acc[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < ROWS; ++r) {
-    if (r0 + r >= nrows) break;                // warp-uniform
-    const float h = tanhf(__fadd_rn(base[(r0 + r) * DC + lane], acc[r]));
-    const float s = warp_sum(__fmul_rn(h, w));
-    if (lane == 0) score[r0 + r] = __fadd_rn(score[r0 + r], s);
-  }
-}
-
 __device__ __forceinline__ void softmax(float* x, int n, int lane) {
   float m = -__int_as_float(0x7f800000);     // -inf
   for (int i = lane; i < n; i += 32) m = fmaxf(m, x[i]);
@@ -267,111 +427,121 @@ __device__ __forceinline__ void softmax(float* x, int n, int lane) {
   for (int i = lane; i < n; i += 32) x[i] = __fdiv_rn(expf(__fsub_rn(x[i], m)), s);
 }
 
-// V [B, S, D], Q [B, 3, L, D] in T; vw [B, S, D], qw [B, 3L, D], cpre [B, 3L, S]
-// f32 from (i); wv, wq [D] f32; out_v, out_q [B, 3, D] in T.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// sum over r = r0, r0 + step, ... < n of a[r] x[r * D], one FMA chain
 template <typename T>
-__global__ void __launch_bounds__(A_THREADS) coatt_kernel(
-    const T* __restrict__ V, const T* __restrict__ Q, const float* __restrict__ vw,
-    const float* __restrict__ qw, const float* __restrict__ cpre,
-    const float* __restrict__ wv, const float* __restrict__ wq,
-    T* __restrict__ out_v, T* __restrict__ out_q, int S, int L, int D) {
-  extern __shared__ float sm[];
-  // row reads of the form A[k * lda + r0 + r] may run up to ROWS - 1 past a
-  // buffer's end: the next buffer follows, and nothing read there is used
-  float* cs = sm;                              // [L][S] tanh(Q V^T)
-  float* vwc = cs + L * S;                     // [S][DC] chunk of W_v V + b_v
-  float* qwc = vwc + S * DC;                   // [L][DC] chunk of W_q Q + b_q
-  float* sv = qwc + L * DC;                    // [S] scores, then a_v
-  float* sq = sv + S;                          // [L] scores, then a_q
+__device__ __forceinline__ float pooled(const float* a, const T* x, int r0, int step, int n,
+                                        int D) {
+  float acc = 0.f;
+  for (int r = r0; r < n; r += step) acc = __fmaf_rn(a[r], to_f32(x[static_cast<size_t>(r) * D]), acc);
+  return acc;
+}
+
+// V [B, S, D], Q [B, 3, L, D] in T; part from (ii); out_v, out_q [B, 3, D] in T.
+template <typename T>
+__global__ void __launch_bounds__(P_THREADS) coatt_pool_kernel(
+    const T* __restrict__ V, const T* __restrict__ Q, const float* __restrict__ part,
+    T* __restrict__ out_v, T* __restrict__ out_q, int S, int L, int D, int slices) {
+  extern __shared__ float sc[];                // [S] scores then a_v, [L] then a_q; partials
+  float* pv = sc + S + L;                      // [P_GROUPS][P_COLS] partial sums of out_v
+  float* pq = pv + P_GROUPS * P_COLS;          // and of out_q
   const int lvl = blockIdx.x, b = blockIdx.y;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const size_t qrow0 = (static_cast<size_t>(b) * 3 + lvl) * L;   // first row of Q as [B*3L, D]
-
-  const float* cp = cpre + (static_cast<size_t>(b) * 3 * L + lvl * L) * S;
-  for (int i = t; i < L * S; i += A_THREADS) cs[i] = tanhf(cp[i]);
-  for (int i = t; i < S + L; i += A_THREADS) sv[i] = 0.f;   // sv and sq
-
-  for (int dc = 0; dc < D; dc += DC) {
-    __syncthreads();                           // the last chunk's readers are done
-    for (int i = t; i < S * DC; i += A_THREADS)
-      vwc[i] = vw[(static_cast<size_t>(b) * S + i / DC) * D + dc + i % DC];
-    for (int i = t; i < L * DC; i += A_THREADS)
-      qwc[i] = qw[(qrow0 + i / DC) * D + dc + i % DC];
-    __syncthreads();
-    const float wvd = __ldg(wv + dc + lane), wqd = __ldg(wq + dc + lane);
-    // H_v rows s: sum over l of C[l][s] (W_q Q)[l][d]
-    for (int s0 = warp * ROWS; s0 < S; s0 += A_WARPS * ROWS)
-      score_rows(cs, S, L, qwc, vwc, wvd, sv, s0, S, lane);
-    // H_q rows l: sum over s of C[l][s] (W_v V)[s][d] (A = C^T: rows of C S apart)
-    for (int l0 = warp * ROWS; l0 < L; l0 += A_WARPS * ROWS) {
-      float acc[ROWS] = {0.f, 0.f, 0.f, 0.f};
-      for (int s = 0; s < S; ++s) {
-        const float bk = vwc[s * DC + lane];
-#pragma unroll
-        for (int r = 0; r < ROWS; ++r) acc[r] = __fmaf_rn(cs[(l0 + r) * S + s], bk, acc[r]);
-      }
-#pragma unroll
-      for (int r = 0; r < ROWS; ++r) {
-        if (l0 + r >= L) break;
-        const float h = tanhf(__fadd_rn(qwc[(l0 + r) * DC + lane], acc[r]));
-        const float sc = warp_sum(__fmul_rn(h, wqd));
-        if (lane == 0) sq[l0 + r] = __fadd_rn(sq[l0 + r], sc);
-      }
-    }
+  const int col = t % P_COLS, grp = t / P_COLS, d = blockIdx.z * P_COLS + col;
+  const float* parts = part + (static_cast<size_t>(b) * 3 + lvl) * slices * (S + L);
+  for (int i = t; i < S + L; i += P_THREADS) {
+    float s = 0.f;
+    for (int k = 0; k < slices; ++k) s = __fadd_rn(s, parts[k * (S + L) + i]);
+    sc[i] = s;
   }
   __syncthreads();
-  if (warp == 0) softmax(sv, S, lane);
-  if (warp == 1) softmax(sq, L, lane);
+  if (warp == 0) softmax(sc, S, lane);
+  if (warp == 1) softmax(sc + S, L, lane);
   __syncthreads();
-  const size_t o = (static_cast<size_t>(b) * 3 + lvl) * D;
-  for (int d = t; d < D; d += A_THREADS) {
+  const size_t qrow0 = (static_cast<size_t>(b) * 3 + lvl) * L;
+  if (d < D) {
+    pv[grp * P_COLS + col] = pooled(sc, V + static_cast<size_t>(b) * S * D + d, grp, P_GROUPS, S, D);
+    pq[grp * P_COLS + col] = pooled(sc + S, Q + qrow0 * D + d, grp, P_GROUPS, L, D);
+  }
+  __syncthreads();
+  if (grp == 0 && d < D) {
     float a = 0.f, c = 0.f;
-    for (int s = 0; s < S; ++s)
-      a = __fmaf_rn(sv[s], to_f32(V[(static_cast<size_t>(b) * S + s) * D + d]), a);
-    for (int l = 0; l < L; ++l) c = __fmaf_rn(sq[l], to_f32(Q[(qrow0 + l) * D + d]), c);
-    out_v[o + d] = from_f32<T>(a);
-    out_q[o + d] = from_f32<T>(c);
+    for (int k = 0; k < P_GROUPS; ++k) {
+      a = __fadd_rn(a, pv[k * P_COLS + col]);
+      c = __fadd_rn(c, pq[k * P_COLS + col]);
+    }
+    out_v[(static_cast<size_t>(b) * 3 + lvl) * D + d] = from_f32<T>(a);
+    out_q[(static_cast<size_t>(b) * 3 + lvl) * D + d] = from_f32<T>(c);
   }
 }
 
 template <typename T>
 int launch(const void* v, const void* q, const void* wvt, const void* bv, const void* wqt,
-           const void* bq, const void* wv, const void* wq, float* vw, float* qw, float* cpre,
-           void* out_v, void* out_q, int B, int S, int L, int D, cudaStream_t st) {
+           const void* bq, const void* wv, const void* wq, float* vw, float* qw, float* ct,
+           float* part, void* out_v, void* out_q, int B, int S, int L, int D, cudaStream_t st) {
   if (B == 0) return static_cast<int>(cudaSuccess);
-  // (i): W_v V + b_v, W_q Q + b_q, then Q V^T per sample
+  int sms = 0, optin = 0;
+  cudaError_t e = sm90::device_limits(&sms, &optin);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  // (i): W_v V + b_v, W_q Q + b_q, then tanh(Q V^T) per sample
+  Maps maps;
+  const CUtensorMapDataType type =
+      sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const void* bases[4] = {v, q, wvt, wqt};
+  const int rows[4] = {B * S, B * 3 * L, D, D};
+  for (int i = 0; i < 4; ++i) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows[i])};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(D) * sizeof(T)};
+    const cuuint32_t box[2] = {static_cast<cuuint32_t>(GLayout<T>::KV), G_BM};
+    e = sm90::encode_tensor_map(&maps.m[i], type, 2, bases[i], dims, strides, box,
+                                CU_TENSOR_MAP_SWIZZLE_128B);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   Gemms gp;
   gp.k = D;
-  gp.p[0] = {v, wvt, static_cast<const float*>(bv), vw, B * S, D, 1, 0, 0, 0, 0};
-  gp.p[1] = {q, wqt, static_cast<const float*>(bq), qw, B * 3 * L, D, 1, 0, 0, 0, 0};
-  gp.p[2] = {q, v, nullptr, cpre, 3 * L, S, B, 3LL * L * D, 1LL * S * D, 3LL * L * S, 0};
+  gp.p[0] = {0, 2, 0, 0, static_cast<const float*>(bv), vw, B * S, D, 1, 0, 0};
+  gp.p[1] = {1, 3, 0, 0, static_cast<const float*>(bq), qw, B * 3 * L, D, 1, 0, 0};
+  gp.p[2] = {1, 0, 3 * L, S, nullptr, ct, 3 * L, S, B, 1, 0};
   int tiles = 0;
   for (Gemm& p : gp.p) {
     p.first_tile = tiles;
     tiles += p.batch * ((p.m + G_BM - 1) / G_BM) * ((p.n + G_BN - 1) / G_BN);
   }
-  gemm_kernel<T><<<tiles, G_THREADS, 0, st>>>(gp);
-  cudaError_t e = cudaGetLastError();
+  constexpr int gsmem = GLayout<T>::SMEM;
+  e = sm90::allow_smem<coatt_gemm_kernel<T>>(gsmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  coatt_gemm_kernel<T><<<tiles, G_THREADS, gsmem, st>>>(maps, gp);
+  e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
 
-  // (ii): the shared-memory size depends on S and L; above 48 KB it needs the
-  // function's attribute, raised per device as far as a launch asked
-  const size_t smem = (static_cast<size_t>(L) * S + (S + L) * DC + S + L) * sizeof(float);
-  constexpr int MAX_DEVICES = 64;
-  static size_t attr[MAX_DEVICES] = {};
-  int dev = 0;
-  e = cudaGetDevice(&dev);
+  // (ii): the shared-memory size depends on S and L
+  const int slices = (D + DS - 1) / DS;
+  const int asmem = static_cast<int>(((static_cast<size_t>(L) * S + 3) / 4 * 4 + (S + L) * DS +
+                                      (DS / 8) * L) * sizeof(float));
+  if (asmem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  e = sm90::allow_smem<coatt_slice_kernel>(asmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem > 48 * 1024 && (dev >= MAX_DEVICES || attr[dev] < smem)) {
-    e = cudaFuncSetAttribute(coatt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < MAX_DEVICES) attr[dev] = smem;
-  }
-  coatt_kernel<T><<<dim3(3, B), A_THREADS, smem, st>>>(
-      static_cast<const T*>(v), static_cast<const T*>(q), vw, qw, cpre,
-      static_cast<const float*>(wv), static_cast<const float*>(wq), static_cast<T*>(out_v),
-      static_cast<T*>(out_q), S, L, D);
+  coatt_slice_kernel<<<dim3(slices, 3, B), A_THREADS, asmem, st>>>(
+      vw, qw, ct, static_cast<const float*>(wv), static_cast<const float*>(wq), part, S, L, D);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  // (iii)
+  const int psmem = (S + L + 2 * P_GROUPS * P_COLS) * static_cast<int>(sizeof(float));
+  if (psmem > optin) return static_cast<int>(cudaErrorInvalidValue);
+  e = sm90::allow_smem<coatt_pool_kernel<T>>(psmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  coatt_pool_kernel<T><<<dim3(3, B, (D + P_COLS - 1) / P_COLS), P_THREADS, psmem, st>>>(
+      static_cast<const T*>(v), static_cast<const T*>(q), part, static_cast<T*>(out_v),
+      static_cast<T*>(out_q), S, L, D, slices);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -383,23 +553,25 @@ extern "C" const char* vqa_cuda_error_string(int code) {
 
 // mode: 0 = f32 v, q, matrices and outputs; 1 = bf16. v [B, S, D], q [B, 3,
 // L, D]; wvt, wqt: W_v^T, W_q^T [D_out][D_in] in v's type; bv, bq, wv, wq [D]
-// f32; vw [B, S, D], qw [B, 3L, D], cpre [B, 3L, S] f32 scratch; out_v, out_q
-// [B, 3, D]. v, q and the matrices 16-byte aligned, D a multiple of 32.
-// Returns cudaGetLastError() after the launches (0 = success).
+// f32; vw [B, S, D], qw [B, 3L, D], ct [B, 3L, S], part [B, 3, ceil(D / 64),
+// S + L] f32 scratch; out_v, out_q [B, 3, D]. v, q and the matrices 16-byte
+// aligned, D a multiple of 32. Returns cudaGetLastError() after the launches
+// (0 = success).
 extern "C" int coattention_fwd(const void* v, const void* q, const void* wvt, const void* bv,
                                const void* wqt, const void* bq, const void* wv, const void* wq,
-                               void* vw, void* qw, void* cpre, void* out_v, void* out_q,
-                               int B, int S, int L, int D, int mode, void* stream) {
+                               void* vw, void* qw, void* ct, void* part, void* out_v,
+                               void* out_q, int B, int S, int L, int D, int mode, void* stream) {
   const uintptr_t misaligned = (reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(q) |
                                 reinterpret_cast<uintptr_t>(wvt) |
                                 reinterpret_cast<uintptr_t>(wqt)) % 16;
-  if (misaligned || D % DC != 0 || S < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (misaligned || D % 32 != 0 || S < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* f[3] = {static_cast<float*>(vw), static_cast<float*>(qw), static_cast<float*>(cpre)};
+  float* f[4] = {static_cast<float*>(vw), static_cast<float*>(qw), static_cast<float*>(ct),
+                 static_cast<float*>(part)};
   switch (mode) {
-    case 0: return launch<float>(v, q, wvt, bv, wqt, bq, wv, wq, f[0], f[1], f[2], out_v, out_q,
-                                 B, S, L, D, st);
-    case 1: return launch<__nv_bfloat16>(v, q, wvt, bv, wqt, bq, wv, wq, f[0], f[1], f[2],
+    case 0: return launch<float>(v, q, wvt, bv, wqt, bq, wv, wq, f[0], f[1], f[2], f[3], out_v,
+                                 out_q, B, S, L, D, st);
+    case 1: return launch<__nv_bfloat16>(v, q, wvt, bv, wqt, bq, wv, wq, f[0], f[1], f[2], f[3],
                                          out_v, out_q, B, S, L, D, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -18,257 +18,395 @@
 // [32, 224, 224, 64] -> [32, 112, 112, 128]) it does 118 G multiply-adds:
 // 0.239 ms at the bf16 tensor-core peak against 0.092 ms for its 308 MB; in
 // f32 each product costs three TF32 MMAs (1.44 ms at the TF32 peak). Design:
-//   * implicit GEMM with K = 9 taps x C: M = conv pixels, N = output
-//     channels. A block is 16 warps (8 along M x 2 along N) and owns a tile of
-//     8 conv rows x 32 conv columns (4 x 16 pooled pixels) x 128 channels;
-//     a warp owns 8 pooled pixels of one pooled row (32 conv pixels, two
-//     m16 tiles) x 64 channels (8 n8 tiles), 64 f32 sums a thread;
-//   * the rows of a warp's m16 tiles are ordered so that the four conv
-//     pixels of a pooled pixel meet in one thread: tile mt is conv row
-//     2 pr + mt, its row g is column 2 (pc0 + g) and row g + 8 column
-//     2 (pc0 + g) + 1, and a thread holds rows g and g + 8 of both tiles. The
-//     pool is a max over four registers, before one bias add and one store;
-//   * K runs in chunks of 8 32-bit words per pixel: 16 bf16 channels (one
-//     m16n8k16 step) or 8 f32 channels (one m16n8k8 step), and the nine taps
-//     of a chunk read the same input halo (10 x 34 pixels) from another
-//     start. A chunk's halo and weights ([9 taps][128 channels][8 words])
-//     come by cp.async, whose zero fill is the conv's padding, into a ring of
-//     3 stages (chunk ch + 2 loads while chunk ch multiplies; 206,688 bytes
-//     of shared memory, one block of 16 warps an SM). Halo pixels lie 10
-//     words apart and weight rows 12: each lane's fragment loads hit 32
-//     distinct banks;
-//   * the fragments are 32-bit words in both types: A word q (+4) of a
-//     pixel, B word q (+4) of an output channel's row, so one body serves
-//     both. bf16: one mma.sync.m16n8k16 (f32 sums) a tap, k-step and tile.
-//     f32 (3xTF32): each operand v splits into hi = rna_tf32(v) and lo =
-//     rna_tf32(v - hi) as its fragment is loaded, and each product is
-//     lo_x hi_w + hi_x lo_w + hi_x hi_w, three mma.sync.m16n8k8 TF32;
+//   * implicit GEMM with K = 9 taps x C on warpgroup MMAs from shared-memory
+//     descriptors: bf16 wgmma.m64n128k16, f32 as 3xTF32 wgmma.m64n128k8. A K
+//     step is 32 bytes of a pixel (16 bf16 or 8 f32 channels), kernel B's
+//     int8 geometry (conv3x3_i8.cu): the input halo of a K chunk is stored as
+//     two 16-byte K halves of [10][tile width + 2] pixels, so a tap's A
+//     operand (an M = 64 tile of 8 x 8 conv pixels) is the same halo from
+//     another start address (SBO = one halo row, LBO = one K half); no
+//     im2col. A consumer warpgroup owns 16 conv columns x 8 rows as two M
+//     tiles (128 f32 sums a thread: the producer warpgroup gives its
+//     registers to the consumers with setmaxnreg, 40 and 232 a thread);
+//   * the weights are the B operand, packed by the wrapper
+//     (ops/conv_hpack.pack_conv3x3_f_weights) as [slice][chunk][hi, lo in
+//     f32][tap][16][K half][8][16 bytes] for slices of 128 output channels.
+//     Blocks are persistent (one an SM, from the device's SM count), each
+//     with a fixed slice, walking spatial tiles. Where the slice fits in
+//     shared memory beside the rings (bf16 VGG conv1: 147,456 bytes) it is
+//     fetched once, by bulk copies, and stays resident, so the weights
+//     cross L2 -> SMEM once a block instead of once a tile (0.92 GB of a
+//     448² bf16 launch before); otherwise (f32: hi and lo of conv1 are
+//     589,824 bytes) each chunk's slice streams through the ring with its
+//     halo, 147,456 bytes a tile of 8 x 32 pixels;
+//   * two schedules (plan() below). Resident weights: 2 streams, ping-pong:
+//     each warpgroup walks its own tiles of 8 x 16 conv pixels through its
+//     own ring, and their mainloops take turns on the tensor cores (an
+//     mbarrier pair orders them), so one warpgroup's epilogue overlaps the
+//     other's MMAs. Streamed weights: 1 stream, both warpgroups on one tile
+//     of 8 x 32 pixels (the weight chunk serves 256 pixels);
+//   * a producer warp (one thread of the producer warpgroup) keeps the rings
+//     full: per (tile, chunk) two TMA loads of a 4-D tensor map over NHWC
+//     (boxes of 16 bytes x (tile width + 2) x 10, whose zero fill outside
+//     the image is the conv's padding) and, streamed, one bulk copy of the
+//     chunk's weights, completing on the stage's mbarrier. The consumers
+//     wait on it, multiply, and release the stage; the producer runs ahead
+//     across tile boundaries, so a tile's epilogue overlaps the next tile's
+//     loads;
+//   * f32: the wrapper splits the weights into TF32 hi and lo once; the
+//     consumers split each halo stage once (not once per tap) into hi and lo
+//     halos, double-buffered, and take each product as lo_x hi_w + hi_x lo_w
+//     + hi_x hi_w, three wgmmas, small terms first;
+//   * epilogue: M rows 16 w + g and 16 w + g + 8 of warp w are tile rows 2 w
+//     and 2 w + 1 at column g of the M tile, so the two rows of a pool window
+//     meet in one thread and its two columns in lanes 4 apart (one shuffle);
+//     then + bias (f32), ReLU, one rounding to x.dtype, staged in shared
+//     memory and written with 16-byte coalesced stores;
 //   * no split-K, no atomics: deterministic.
-// C and C_out must be multiples of 8; a block's channels past C_out are
-// zero-filled and not stored. Odd H or W floor (VALID pool).
+// C and C_out must be multiples of 8; a slice's channels past C_out have zero
+// weights and are not stored, K chunks past C arrive as zeros. Odd H or W
+// floor (VALID pool).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int TH = 8, TW = 32;                 // conv tile (pre-pool)
-constexpr int PH = TH / 2, PW = TW / 2;        // pooled tile
-constexpr int HALO_H = TH + 2, HALO_W = TW + 2;
-constexpr int NPIX = HALO_H * HALO_W;          // 340
-constexpr int BN = 128;                        // output channels of a block
-constexpr int KW = 8;                          // 32-bit words of K per chunk
-constexpr int XS = KW + 2;                     // halo pixel stride (words)
-constexpr int WS = KW + 4;                     // weight row stride (words, 16-byte rows)
-constexpr int M_WARPS = 8, N_WARPS = 2;
-constexpr int THREADS = 32 * M_WARPS * N_WARPS;
-constexpr int STAGES = 3;
-constexpr int X_WORDS = NPIX * XS;
-constexpr int W_WORDS = 9 * BN * WS;
-constexpr int STAGE_WORDS = X_WORDS + W_WORDS;
-constexpr int SMEM_BYTES = STAGES * STAGE_WORDS * 4;
-static_assert((X_WORDS * 4) % 16 == 0 && (STAGE_WORDS * 4) % 16 == 0,
-              "weight rows must stay 16-byte aligned");
+constexpr int TH = 8, TW = 32;                 // conv tile of a block (pre-pool)
+constexpr int PH = TH / 2, PW = TW / 2;        // pooled
+constexpr int HALO_H = TH + 2;
+constexpr int CONSUMERS = 256;                 // 2 warpgroups
+constexpr int THREADS = CONSUMERS + 128;       // + the producer warpgroup (one thread issues)
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;   // setmaxnreg: 128 x 40 + 256 x 232 <= 64 K
+constexpr int MAX_STAGES = 8;                  // a stream's ring
+// full[2][8], empty[2][8], the weights' barrier, the two order barriers
+constexpr int BARRIER_BYTES = 512;
 
-__device__ __forceinline__ void cp8(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 8 : 0) : "memory");
-}
+constexpr int BN = 128;                        // output channels of a block (its slice)
 
-__device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
+template <typename T> struct Traits;
+template <> struct Traits<__nv_bfloat16> {
+  static constexpr int CK = 16, PARTS = 1;     // K chunk; one wgmma a tap and M tile
+};
+template <> struct Traits<float> {
+  static constexpr int CK = 8, PARTS = 2;      // hi and lo, three wgmmas
+};
 
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <typename T> struct Layout {
+  static constexpr int TAP_BYTES = BN * 32;
+  static constexpr int W_CHUNK = 9 * TAP_BYTES * Traits<T>::PARTS;    // one chunk's slice
+  static constexpr int RS = BN * static_cast<int>(sizeof(T)) + 16;    // staging row stride
+  static_assert(W_CHUNK % 128 == 0, "regions must stay 128-byte aligned");
+};
 
-__device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// Shared memory: barriers; per stream a region (f32: its double-buffered hi
+// and lo halos; both types: the epilogue's staging, after the split halos'
+// last use); the resident weights; per stream a ring of stages (a halo in
+// two K halves, and the chunk's weights where they stream).
+struct Params {
+  int H, W, C, Cout, Ho, Wo;
+  int nch;             // K chunks
+  int resident;        // the slice's weights stay in shared memory
+  int streams;         // 1: both warpgroups on one tile 32 conv columns wide; 2: a tile
+                       // 16 wide each, their mainloops in turn (ping-pong)
+  int stages;          // ring depth of a stream
+  int units;           // spatial tiles (of every image), per slice
+  int tiles_w, tiles_img;
+  int halo_w, half_bytes, stage_bytes, region;
+};
 
-// f32 -> TF32, to nearest with ties away from zero, the 13 low bits zero
-__device__ __forceinline__ uint32_t tf32_rna(uint32_t v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(__uint_as_float(v)));
-  return r & 0xffffe000u;
-}
+__host__ __device__ constexpr int round128(int n) { return (n + 127) / 128 * 128; }
 
-__device__ __forceinline__ void split(uint32_t v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(__float_as_uint(__fsub_rn(__uint_as_float(v), __uint_as_float(hi))));
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+__device__ __forceinline__ void store2(unsigned char* p, float a, float b, __nv_bfloat16*) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __halves2bfloat162(__float2bfloat16_rn(a),
                                                              __float2bfloat16_rn(b));
 }
 
-__device__ __forceinline__ void store2(float* p, float a, float b) {
+__device__ __forceinline__ void store2(unsigned char* p, float a, float b, float*) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-// T: __nv_bfloat16 (one m16n8k16 a step) or float (3xTF32, m16n8k8).
-// x [B, H, W, C], w [9][Cout][C] in T, bias [Cout] f32, out [B, H/2, W/2, Cout].
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
-    const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ bias,
-    T* __restrict__ out, int H, int W, int C, int Cout) {
-  extern __shared__ __align__(16) uint32_t smem[];
-  constexpr bool BF16 = sizeof(T) == 2;
-  const int cw = BF16 ? C / 2 : C;               // words of a pixel / weight row
-  const int nch = (cw + KW - 1) / KW;
-  const int Ho = H / 2, Wo = W / 2;
-  const int tiles_w = (Wo + PW - 1) / PW;
-  const int ty0 = (blockIdx.x / tiles_w) * TH, tx0 = (blockIdx.x % tiles_w) * TW;
-  const int n0 = blockIdx.y * BN, b = blockIdx.z;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int mw = warp % M_WARPS, nw = warp / M_WARPS;
-  const int pr = mw >> 1, pc0 = (mw & 1) * 8;    // the warp's pooled row, first pooled column
-  const uint32_t sbase = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const uint32_t* xg = reinterpret_cast<const uint32_t*>(x);
-  const uint32_t* wg = reinterpret_cast<const uint32_t*>(w);
-
-  // chunk ch -> stage: the halo's words [8 ch, 8 ch + 8) of each pixel as 4
-  // 8-byte copies, the weights' as 2 16-byte copies a (tap, channel) row
-  auto load_stage = [&](int stage, int ch) {
-    const uint32_t xs = sbase + stage * STAGE_WORDS * 4, ws = xs + X_WORDS * 4;
-    for (int i = t; i < NPIX * 4; i += THREADS) {
-      const int pix = i >> 2, k = ch * KW + (i & 3) * 2;
-      const int iy = ty0 - 1 + pix / HALO_W, ix = tx0 - 1 + pix % HALO_W;
-      const bool ok = iy >= 0 && iy < H && ix >= 0 && ix < W && k < cw;
-      const uint32_t* src = ok ? xg + ((static_cast<size_t>(b) * H + iy) * W + ix) * cw + k : xg;
-      cp8(xs + (pix * XS + (i & 3) * 2) * 4, src, ok);
+    const __grid_constant__ CUtensorMap xmap,   // x [B, H, W, C] as (C, W, H, B)
+    const unsigned char* __restrict__ wp,       // pack_conv3x3_f_weights
+    const float* __restrict__ bias,             // [Cout]
+    T* __restrict__ out,                        // [B, H/2, W/2, Cout]
+    const Params p) {
+  using L = Layout<T>;
+  constexpr int CK = Traits<T>::CK;
+  constexpr bool F32 = Traits<T>::PARTS == 2;
+  constexpr int ACC = BN / 2;                   // f32 sums a thread and M tile (m64nBN)
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_addr(smem_raw);
+  const uint32_t base = (raw + 127) & ~127u;
+  unsigned char* const gbase = smem_raw + (base - raw);
+  const uint32_t full0 = base, empty0 = base + 16 * MAX_STAGES;
+  const uint32_t wbar = base + 32 * MAX_STAGES, order0 = wbar + 8;
+  const uint32_t s_regions = base + BARRIER_BYTES;
+  const uint32_t s_w = s_regions + p.streams * p.region;
+  const uint32_t s_ring = s_w + (p.resident ? p.nch * L::W_CHUNK : 0);
+  const int halo_bytes = 2 * p.half_bytes;
+  const int tw = TW / p.streams, pw = PW / p.streams;   // a stream's tile
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const int slices = (p.Cout + BN - 1) / BN;
+  const int slice = blockIdx.x % slices, first = blockIdx.x / slices;
+  const int step = gridDim.x / slices;
+  if (t == 0) {
+    for (int s = 0; s < 2 * MAX_STAGES; ++s) {
+      sm90::mbar_init(full0 + 8 * s, 1);
+      sm90::mbar_init(empty0 + 8 * s, CONSUMERS / 32 / p.streams);
     }
-    for (int i = t; i < 9 * BN * 2; i += THREADS) {
-      const int row = i >> 1, tap = row / BN, n = row % BN, k = ch * KW + (i & 1) * 4;
-      const bool ok = n0 + n < Cout && k < cw;
-      const uint32_t* src = ok ? wg + (static_cast<size_t>(tap) * Cout + n0 + n) * cw + k : wg;
-      cp16(ws + (row * WS + (i & 1) * 4) * 4, src, ok);
-    }
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nch) load_stage(s, s);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    sm90::mbar_init(wbar, 1);
+    sm90::mbar_init(order0, 4);                 // the 4 warps of a warpgroup
+    sm90::mbar_init(order0 + 8, 4);
+    sm90::mbar_init_fence();
   }
-  // the halo pixel of this lane's A row g (dx = 0) at tap (0, 0), conv row 2 pr
-  const int apix = 2 * pr * HALO_W + 2 * (pc0 + g);
-  const int brow = nw * 64 + g;
-#pragma unroll 1
-  for (int ch = 0; ch < nch; ++ch) {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(STAGES - 2) : "memory");
-    __syncthreads();          // chunk ch landed; every warp is done with chunk ch - 1
-    if (ch + STAGES - 1 < nch) load_stage((ch + STAGES - 1) % STAGES, ch + STAGES - 1);
-    asm volatile("cp.async.commit_group;\n" ::: "memory");
-    const uint32_t* xs = smem + (ch % STAGES) * STAGE_WORDS;
-    const uint32_t* ws = xs + X_WORDS;
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int ky = tap / 3, kx = tap % 3;
-      // a[mt]: rows g (dx 0) and g + 8 (dx 1) of conv row 2 pr + mt, words q and q + 4
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const uint32_t* p = xs + (apix + (mt + ky) * HALO_W + kx) * XS + q;
-        a[mt][0] = p[0];
-        a[mt][1] = p[XS];
-        a[mt][2] = p[4];
-        a[mt][3] = p[XS + 4];
+  __syncthreads();
+
+  if (warp >= CONSUMERS / 32) {
+    // the producer warpgroup: one thread issues every copy, for the block's
+    // tiles in order, tile i into the ring of stream i % streams
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(PRODUCER_REGS));
+    if (warp == CONSUMERS / 32 && lane == 0) {
+      const unsigned char* wsl = wp + static_cast<size_t>(slice) * p.nch * L::W_CHUNK;
+      if (p.resident && first < p.units) {
+        sm90::mbar_expect_tx(wbar, p.nch * L::W_CHUNK);
+        for (int ch = 0; ch < p.nch; ++ch)
+          sm90::bulk_load(s_w + ch * L::W_CHUNK, wsl + static_cast<size_t>(ch) * L::W_CHUNK,
+                          L::W_CHUNK, wbar);
       }
-      const uint32_t* wrow = ws + (tap * BN + brow) * WS + q;
-      if (BF16) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const uint32_t b0 = wrow[j * 8 * WS], b1 = wrow[j * 8 * WS + 4];
-          mma_bf16(acc[0][j], a[0], b0, b1);
-          mma_bf16(acc[1][j], a[1], b0, b1);
+      int k0 = 0, k1 = 0;                      // the streams' chunk counts
+      int i = 0;
+      for (int u = first; u < p.units; u += step, ++i) {
+        const int sn = p.streams == 2 ? (i & 1) : 0;
+        const int b = u / p.tiles_img, r = u % p.tiles_img;
+        const int iy = (r / p.tiles_w) * TH - 1, ix = (r % p.tiles_w) * tw - 1;
+        for (int ch = 0; ch < p.nch; ++ch) {
+          const int k = sn ? k1++ : k0++, s = k % p.stages;
+          const uint32_t fb = full0 + 8 * (sn * MAX_STAGES + s);
+          sm90::mbar_wait(empty0 + 8 * (sn * MAX_STAGES + s), ((k / p.stages) & 1) ^ 1);
+          const uint32_t st = s_ring + (sn * p.stages + s) * p.stage_bytes;
+          sm90::mbar_expect_tx(fb, 2 * HALO_H * p.halo_w * 16 + (p.resident ? 0 : L::W_CHUNK));
+          sm90::tma_load_4d(st, &xmap, ch * CK, ix, iy, b, fb);
+          sm90::tma_load_4d(st + p.half_bytes, &xmap, ch * CK + CK / 2, ix, iy, b, fb);
+          if (!p.resident)
+            sm90::bulk_load(st + halo_bytes, wsl + static_cast<size_t>(ch) * L::W_CHUNK,
+                            L::W_CHUNK, fb);
         }
-      } else {
-        uint32_t ah[2][4], al[2][4];
+      }
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wg, warp w within it, lane (g, q); stream sn,
+  // whose tiles are the block's tiles sn, sn + streams, ...
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
+  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, q = lane & 3;
+  const int sn = p.streams == 2 ? wg : 0;
+  const int col0 = p.streams == 2 ? 0 : 16 * wg;        // the warpgroup's first column
+  const int nts = CONSUMERS / p.streams, ts = t - sn * nts;   // the stream's threads
+  const int bar_id = 1 + sn;
+  const int n0 = slice * BN;
+  // the stage holds only the raw halo (f32 with resident weights): the split
+  // consumes it; otherwise the wgmmas read it, and it is released after them
+  const bool split_releases = F32 && p.resident;
+  const uint32_t s_region = s_regions + sn * p.region;
+  unsigned char* const staging = gbase + (s_region - base);
+  const int nb = first < p.units ? (p.units - first + step - 1) / step : 0;   // the block's tiles
+  if (p.resident && nb > 0) sm90::mbar_wait(wbar, 0);
+  float acc[2][ACC];                           // M tiles: columns col0 + 8 mt ..
+  int k = 0;
+#pragma unroll 1
+  for (int i = sn; i < nb; i += p.streams) {
+    const int u = first + i * step;
 #pragma unroll
-        for (int mt = 0; mt < 2; ++mt)
+    for (int j = 0; j < ACC; ++j) acc[0][j] = acc[1][j] = 0.f;
+    sm90::pin<ACC>(acc[0]);
+    sm90::pin<ACC>(acc[1]);
+    // ping-pong: tile i's mainloop starts when tile i - 1's (the other
+    // warpgroup's) has issued its last wgmmas
+    if (p.streams == 2 && i > 0) sm90::mbar_wait(order0 + 8 * ((i - 1) & 1), ((i - 1) >> 1) & 1);
+#pragma unroll 1
+    for (int ch = 0; ch < p.nch; ++ch, ++k) {
+      const int s = k % p.stages;
+      const int slot = sn * MAX_STAGES + s;
+      sm90::mbar_wait(full0 + 8 * slot, (k / p.stages) & 1);
+      const uint32_t st = s_ring + (sn * p.stages + s) * p.stage_bytes;
+      const uint32_t ws = p.resident ? s_w + ch * L::W_CHUNK : st + halo_bytes;
+      uint32_t xs = st;                        // the A halo (f32: its hi part; lo follows)
+      if (F32) {
+        // the stream's wgmmas of chunk k - 2 are done (each warpgroup waited
+        // for all but its last group after chunk k - 1): split buffer k & 1 is free
+        sm90::named_barrier(bar_id, nts);
+        xs = s_region + (k & 1) * 2 * halo_bytes;
+        const float4* src = reinterpret_cast<const float4*>(gbase + (st - base));
+        float4* hi = reinterpret_cast<float4*>(gbase + (xs - base));
+        float4* lo = hi + halo_bytes / 16;
+        for (int j = ts; j < halo_bytes / 16; j += nts) {
+          float4 l;
+          hi[j] = sm90::split4(src[j], l);
+          lo[j] = l;
+        }
+        sm90::fence_async_shared();
+        if (split_releases) {
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(empty0 + 8 * slot);
+        }
+        sm90::named_barrier(bar_id, nts);
+      }
+      const uint64_t da = sm90::desc(xs + col0 * 16, p.half_bytes, p.halo_w * 16);
+      const uint64_t db = sm90::desc(ws, 128, 256);
+      sm90::wgmma_fence();
 #pragma unroll
-          for (int r = 0; r < 4; ++r) split(a[mt][r], ah[mt][r], al[mt][r]);
+      for (int tap = 0; tap < 9; ++tap) {      // descriptors count 16-byte units
+        const uint64_t bw = db + tap * (L::TAP_BYTES >> 4);
+        const int toff = (tap / 3) * p.halo_w + tap % 3;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split(wrow[j * 8 * WS], bh0, bl0);
-          split(wrow[j * 8 * WS + 4], bh1, bl1);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {   // small terms first
-            mma_tf32(acc[mt][j], al[mt], bh0, bh1);
-            mma_tf32(acc[mt][j], ah[mt], bl0, bl1);
-            mma_tf32(acc[mt][j], ah[mt], bh0, bh1);
+        for (int mt = 0; mt < 2; ++mt) {
+          const uint64_t a = da + (toff + 8 * mt);
+          if constexpr (F32) {
+            sm90::wgmma_tf32_n128(acc[mt], a + (halo_bytes >> 4), bw, 1);         // lo_x hi_w
+            sm90::wgmma_tf32_n128(acc[mt], a, bw + 9 * (L::TAP_BYTES >> 4), 1);   // hi_x lo_w
+            sm90::wgmma_tf32_n128(acc[mt], a, bw, 1);                             // hi_x hi_w
+          } else {
+            sm90::wgmma_bf16_n128(acc[mt], a, bw, 1);
           }
         }
       }
+      sm90::wgmma_commit();
+      if (p.streams == 2 && ch == p.nch - 1 && i + 1 < nb) {
+        __syncwarp();                          // the next tile's mainloop may start
+        if (lane == 0) sm90::mbar_arrive(order0 + 8 * (i & 1));
+      }
+      sm90::wgmma_wait<1>();
+      sm90::pin<ACC>(acc[0]);
+      sm90::pin<ACC>(acc[1]);
+      if (!split_releases && ch > 0) {         // chunk k - 1's wgmmas are done
+        __syncwarp();
+        if (lane == 0) sm90::mbar_arrive(empty0 + 8 * (sn * MAX_STAGES + (k - 1) % p.stages));
+      }
     }
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    sm90::wgmma_wait<0>();
+    sm90::pin<ACC>(acc[0]);
+    sm90::pin<ACC>(acc[1]);
+    if (!split_releases) {
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty0 + 8 * (sn * MAX_STAGES + (k - 1) % p.stages));
+    }
 
-  // acc[mt][j][2 dx + e]: conv pixel (2 pr + mt, 2 (pc0 + g) + dx), channel
-  // n0 + 64 nw + 8 j + 2 q + e
-  const int po = ty0 / 2 + pr, pw = tx0 / 2 + pc0 + g;
-  if (po >= Ho || pw >= Wo) return;
-  T* const dst = out + ((static_cast<size_t>(b) * Ho + po) * Wo + pw) * Cout;
+    // Epilogue. acc[mt][4j + 2hf + e]: M row 16w + g + 8hf = tile pixel
+    // (2w + hf, col0 + 8 mt + g), channel n0 + 8j + 2q + e. The staging
+    // is free: the stream's last stores have read it, and (f32) every
+    // split of this tile is done (wait<0> above).
+    sm90::named_barrier(bar_id, nts);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + nw * 64 + 8 * j + 2 * q;
-    if (n >= Cout) break;                        // Cout % 8 == 0: whole n8 tiles
-    float y[2];
+    for (int j = 0; j < BN / 8; ++j) {
+      if (n0 + 8 * j >= p.Cout) break;         // warp-uniform: Cout % 8 == 0
+      const int c = 8 * j + 2 * q;
+      const float b0 = __ldg(bias + n0 + c), b1 = __ldg(bias + n0 + c + 1);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const float m = fmaxf(fmaxf(acc[0][j][e], acc[0][j][2 + e]),
-                            fmaxf(acc[1][j][e], acc[1][j][2 + e]));
-      const float v = __fadd_rn(m, __ldg(bias + n + e));
-      y[e] = v > 0.f ? v : 0.f;
+      for (int mt = 0; mt < 2; ++mt) {
+        float y[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float m = fmaxf(acc[mt][4 * j + e], acc[mt][4 * j + 2 + e]);
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+          const float v = __fadd_rn(m, e ? b1 : b0);
+          y[e] = v > 0.f ? v : 0.f;
+        }
+        // pooled pixel (w, col0 / 2 + 4 mt + g / 2); both lanes of a pair
+        // stage the same values
+        store2(staging + (w * pw + col0 / 2 + 4 * mt + (g >> 1)) * L::RS + c * sizeof(T), y[0],
+               y[1], static_cast<T*>(nullptr));
+      }
     }
-    store2(dst + n, y[0], y[1]);
+    sm90::named_barrier(bar_id, nts);
+    const int b = u / p.tiles_img, r = u % p.tiles_img;
+    const int po0 = (r / p.tiles_w) * PH, pw0 = (r % p.tiles_w) * pw;
+    constexpr int CHUNKS = BN * static_cast<int>(sizeof(T)) / 16;   // 16-byte pieces a pixel
+    constexpr int PER16 = 16 / static_cast<int>(sizeof(T));         // channels a piece
+    for (int j = ts; j < PH * pw * CHUNKS; j += nts) {
+      const int pix = j / CHUNKS, kk = j % CHUNKS;
+      const int po = po0 + pix / pw, pc = pw0 + pix % pw, o = n0 + kk * PER16;
+      if (po >= p.Ho || pc >= p.Wo || o >= p.Cout) continue;
+      *reinterpret_cast<int4*>(out + ((static_cast<size_t>(b) * p.Ho + po) * p.Wo + pc) * p.Cout + o) =
+          *reinterpret_cast<const int4*>(staging + pix * L::RS + kk * 16);
+    }
   }
+}
+
+// The shared memory of a schedule: 2 streams with resident weights where
+// they fit, else 1 stream, resident or streaming the weights. Returns the
+// bytes, 0 if the schedule does not fit in `optin`.
+template <typename T>
+int plan(Params& p, int streams, int resident, int optin) {
+  using L = Layout<T>;
+  p.streams = streams;
+  p.resident = resident;
+  const int tw = TW / streams;
+  p.halo_w = tw + 2;
+  p.half_bytes = round128(HALO_H * p.halo_w * 16);
+  const int halo_bytes = 2 * p.half_bytes;
+  const int staging = PH * (PW / streams) * L::RS;
+  const int split = Traits<T>::PARTS == 2 ? 2 * 2 * halo_bytes : 0;
+  p.region = round128(staging > split ? staging : split);
+  p.stage_bytes = halo_bytes + (resident ? 0 : L::W_CHUNK);
+  const int fixed = 128 + BARRIER_BYTES + streams * p.region +
+                    (resident ? p.nch * L::W_CHUNK : 0);
+  const int per = (optin - fixed) / (streams * p.stage_bytes);
+  if (optin <= fixed || per < 2) return 0;
+  p.stages = per < MAX_STAGES ? per : MAX_STAGES;
+  return fixed + streams * p.stages * p.stage_bytes;
 }
 
 template <typename T>
 int launch(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
            int C, int Cout, cudaStream_t st) {
-  // the shared-memory limit is an attribute of the function on each device
-  constexpr int MAX_DEVICES = 64;
-  static bool attr_set[MAX_DEVICES] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (dev >= MAX_DEVICES || !attr_set[dev]) {
-    e = cudaFuncSetAttribute(conv3x3_f_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_BYTES);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev < MAX_DEVICES) attr_set[dev] = true;
-  }
+  constexpr int CK = Traits<T>::CK;
   const int Ho = H / 2, Wo = W / 2;
   if (B == 0 || Ho == 0 || Wo == 0 || Cout == 0) return static_cast<int>(cudaSuccess);
-  const dim3 grid(((Ho + PH - 1) / PH) * ((Wo + PW - 1) / PW), (Cout + BN - 1) / BN, B);
-  conv3x3_f_kernel<T><<<grid, THREADS, SMEM_BYTES, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const float*>(bias),
-      static_cast<T*>(out), H, W, C, Cout);
+  int sms = 0, optin = 0;
+  cudaError_t e = sm90::device_limits(&sms, &optin);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  Params p;
+  p.H = H, p.W = W, p.C = C, p.Cout = Cout, p.Ho = Ho, p.Wo = Wo;
+  p.nch = (C + CK - 1) / CK;
+  int smem = plan<T>(p, 2, 1, optin);
+  if (smem == 0) smem = plan<T>(p, 1, 1, optin);
+  if (smem == 0) smem = plan<T>(p, 1, 0, optin);
+  if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.tiles_w = (Wo + PW / p.streams - 1) / (PW / p.streams);
+  p.tiles_img = ((Ho + PH - 1) / PH) * p.tiles_w;
+  p.units = B * p.tiles_img;
+  e = sm90::allow_smem<conv3x3_f_kernel<T>>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  CUtensorMap xmap;
+  const cuuint64_t es = sizeof(T);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(C), static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {C * es, static_cast<cuuint64_t>(W) * C * es,
+                                 static_cast<cuuint64_t>(H) * W * C * es};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(CK / 2), static_cast<cuuint32_t>(p.halo_w),
+                             HALO_H, 1};
+  e = sm90::encode_tensor_map(&xmap, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                    : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                              4, x, dims, strides, box);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  // persistent blocks, one an SM, a whole number of them per slice
+  const int slices = (Cout + BN - 1) / BN;
+  int per_slice = sms / slices;
+  if (per_slice < 1) per_slice = 1;
+  if (per_slice > p.units) per_slice = p.units;
+  conv3x3_f_kernel<T><<<per_slice * slices, THREADS, smem, st>>>(
+      xmap, static_cast<const unsigned char*>(w), static_cast<const float*>(bias),
+      static_cast<T*>(out), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -278,9 +416,9 @@ extern "C" const char* vqa_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// mode: 0 = f32 x, w and out; 1 = bf16. w: [9][Cout][C] (ops/conv_hpack.
-// conv3x3_f_operands), bias [Cout] f32. x and w 16-byte aligned, C and Cout
-// multiples of 8. Returns cudaGetLastError() after the launch (0 = success).
+// mode: 0 = f32 x and out; 1 = bf16. w: ops/conv_hpack.pack_conv3x3_f_weights
+// (bf16, or f32 TF32 hi/lo), bias [Cout] f32. x and w 16-byte aligned, C and
+// Cout multiples of 8. Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int conv3x3_f(const void* x, const void* w, const void* bias, void* out,
                          int B, int H, int W, int C, int Cout, int mode, void* stream) {
   if (C % 8 != 0 || Cout % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||

@@ -33,6 +33,9 @@ from .._build import COATTENTION_FWD
 from .conv_stage1 import ulp
 
 NUM_LEVELS = 3
+# kernel E's phase (ii) block width: the columns of D whose H_v and H_q
+# products and partial scores one block takes (csrc/coattention_fwd.cu DS)
+SLICE = 64
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -81,8 +84,8 @@ def coattention_plain(x_img, q_stacked, W_v, b_v, W_q, b_q, w_v, w_q):
 
 def coattention_kernel_operands(x_img, W_v, b_v, W_q, b_q, w_v, w_q):
     """Kernel E's weights: W_v^T and W_q^T [D_out, D_in] in x_img.dtype
-    (each output column's K contiguous, its ``mma.sync`` B operand), the
-    biases and score vectors as f32 [D]."""
+    (each output column's K contiguous: rows that TMA brings as the
+    ``wgmma`` B operand), the biases and score vectors as f32 [D]."""
     dt, dev = x_img.dtype, x_img.device
 
     def vec(t):
@@ -96,19 +99,21 @@ def launch_coattention_fwd(v, q, wvt, bv, wqt, bq, wv, wq):
     """Launch kernel E on operands already in its layout: ``v`` [B, S, D]
     and ``q`` [B, 3, L, D] contiguous on the card, the rest from
     :func:`coattention_kernel_operands`. Allocates the f32 scratch of its
-    projections (W_v V, W_q Q, Q V^T)."""
+    projections (W_v V, W_q Q, tanh(Q V^T)) and of its partial scores, one
+    row of S + L a slice of ``SLICE`` columns of D."""
     b, s, d = v.shape
     l = q.shape[2]
     dev = v.device
     vw = torch.empty((b, s, d), dtype=torch.float32, device=dev)
     qw = torch.empty((b, NUM_LEVELS * l, d), dtype=torch.float32, device=dev)
-    cpre = torch.empty((b, NUM_LEVELS * l, s), dtype=torch.float32, device=dev)
+    ct = torch.empty((b, NUM_LEVELS * l, s), dtype=torch.float32, device=dev)
+    part = torch.empty((b, NUM_LEVELS, -(-d // SLICE), s + l), dtype=torch.float32, device=dev)
     out_v = torch.empty((b, NUM_LEVELS, d), dtype=v.dtype, device=dev)
     out_q = torch.empty((b, NUM_LEVELS, d), dtype=v.dtype, device=dev)
     COATTENTION_FWD.launch(v.data_ptr(), q.data_ptr(), wvt.data_ptr(), bv.data_ptr(),
                            wqt.data_ptr(), bq.data_ptr(), wv.data_ptr(), wq.data_ptr(),
-                           vw.data_ptr(), qw.data_ptr(), cpre.data_ptr(), out_v.data_ptr(),
-                           out_q.data_ptr(), b, s, l, d, _MODES[v.dtype])
+                           vw.data_ptr(), qw.data_ptr(), ct.data_ptr(), part.data_ptr(),
+                           out_v.data_ptr(), out_q.data_ptr(), b, s, l, d, _MODES[v.dtype])
     return out_v, out_q
 
 
@@ -126,9 +131,10 @@ def coattention_bound(x_img, q_stacked, out_v, out_q):
     dtype, M the largest |V[b, s, d]| over s (for out_v) or |Q[b, level, l,
     d]| over l (for out_q): the pooled sum's scale.
 
-    Both sides sum in f32 in different orders (the kernel's projections on
-    the tensor cores, in f32 through 3xTF32, its H_v/H_q sums in FMA
-    chains), and tanh/exp round differently: a few f32 ulps of relative
+    Both sides sum in f32 in different orders (the kernel's projections and
+    its H_v/H_q products on the tensor cores, in f32 through 3xTF32, its
+    scores summed per slice of 64 columns of D, then over the slices), and
+    tanh/exp round differently: a few f32 ulps of relative
     difference in each intermediate, which reach the scores through the
     D = 512 terms of ``H w`` and the pooled outputs through the softmax: a
     score difference δ moves a pooled value by at most 2 δ M. 2^-14 (6.1e-5)
@@ -136,7 +142,8 @@ def coattention_bound(x_img, q_stacked, out_v, out_q):
     512), with its weight init and V, Q scaled up to 10 and 3, the plain
     version in f32 lies 50 to 800 times inside it from the same function in
     float64 (tests/test_torch_coattention_kernel.py checks it at a small
-    size).
+    size, and against a model of the kernel's arithmetic at D 32, 96 and
+    512).
     """
     m_v = x_img.float().abs().amax(dim=1, keepdim=True).expand_as(out_v)
     m_q = q_stacked.float().abs().amax(dim=2)

@@ -13,8 +13,10 @@ here the input stays plain NHWC. Two hand-written kernels:
   on int8): every epilogue step is non-decreasing because the scale is
   positive (vqa_tpu/ops/conv_hpack.py:24-28).
 - float (``int8=False``, the JAX function's default route): kernel D
-  (``csrc/conv3x3_f.cu``, an implicit GEMM with K = 9 C on ``mma.sync``:
-  bf16 with f32 sums, f32 as 3xTF32). :func:`conv3x3_f` is its wrapper,
+  (``csrc/conv3x3_f.cu``, an implicit GEMM with K = 9 C on ``wgmma``:
+  bf16 with f32 sums, f32 as 3xTF32; persistent blocks keep their slice of
+  the weights, :func:`pack_conv3x3_f_weights`, in shared memory where it
+  fits). :func:`conv3x3_f` is its wrapper,
   :func:`conv3x3_f_plain` its arithmetic, and the kernel is held within
   :func:`conv3x3_f_bound` of it.
 
@@ -28,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from .._build import CONV3X3_F, CONV3X3_I8
-from .conv_stage1 import ulp
+from .conv_stage1 import tf32_rna, ulp
 from .quant import activation_quant, const, epilogue, int_conv3x3, weight_quant
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -153,22 +155,47 @@ def conv3x3_f(x, w, b):
     return torch.ops.vqa_tpu_torch.conv3x3_f(x, w, b)
 
 
-def conv3x3_f_operands(x, w, b):
-    """Kernel D's operands: the weights HWIO [3, 3, C, O] rounded to x.dtype
-    as [9, O, C] (each output channel's C contiguous: its ``mma.sync`` B
-    fragments are 32-bit words along K) and the bias as f32 [O]."""
+# Kernel D's output channels a block owns (its wgmma N; csrc/conv3x3_f.cu BN)
+CONV3X3_F_SLICE = 128
+
+
+def pack_conv3x3_f_weights(w, dtype):
+    """Kernel D's weight layout: HWIO [3, 3, C, O] rounded to ``dtype`` ->
+    bf16 [P, K, 9, N / 8, 2, 8, 8], or f32 [P, K, 2, 9, N / 8, 2, 8, 4] with
+    the TF32 split (index 2: hi = rna_tf32(w), lo = rna_tf32(w - hi)):
+    ``wp[p, k, (s,) t, n, h, r, i] = part_s(w[t // 3, t % 3, CK k + E h + i,
+    N p + 8 n + r])`` with E = 16 bytes of values (8 bf16, 4 f32), a K
+    chunk CK = 2 E channels (32 bytes of a pixel), N = ``CONV3X3_F_SLICE``,
+    K = ceil(C / CK) and P = ceil(O / N); channels past C and past O are
+    zero. ``wp[p]`` is a block's slice, ``wp[p, k]`` one chunk of it, both
+    contiguous (one bulk copy each), already in the order wgmma reads as its
+    B operand (core matrices of 8 output channels x 16 bytes of K)."""
     kh, kw, c, o = w.shape
-    wk = w.to(x.device, x.dtype).reshape(kh * kw, c, o).transpose(1, 2).contiguous()
-    return wk, b.to(x.device, torch.float32).contiguous()
+    e = 16 // torch.empty((), dtype=dtype).element_size()
+    n = CONV3X3_F_SLICE
+    nch, op = -(-c // (2 * e)), -(-o // n) * n
+    wk = F.pad(w.to(dtype), (0, op - o, 0, nch * 2 * e - c))
+    w9 = wk.reshape(kh * kw, nch, 2, e, op // n, n // 8, 8).permute(4, 1, 0, 5, 2, 6, 3)
+    if dtype == torch.bfloat16:
+        return w9.contiguous()
+    hi = tf32_rna(w9)
+    return torch.stack([hi, tf32_rna(w9 - hi)], dim=2).contiguous()
 
 
-def launch_conv3x3_f(x, wk, b32):
+def conv3x3_f_operands(x, w, b):
+    """Kernel D's operands: the weights rounded to x.dtype in its layout
+    (:func:`pack_conv3x3_f_weights`) and the bias as f32 [O]."""
+    return (pack_conv3x3_f_weights(w.to(x.device), x.dtype),
+            b.to(x.device, torch.float32).contiguous())
+
+
+def launch_conv3x3_f(x, wp, b32):
     """Launch kernel D on operands already in its layout: ``x`` contiguous
-    NHWC on the card, ``wk``/``b32`` from :func:`conv3x3_f_operands`."""
+    NHWC on the card, ``wp``/``b32`` from :func:`conv3x3_f_operands`."""
     bsz, h, wd, c = x.shape
-    o = wk.shape[1]
+    o = b32.shape[0]
     out = torch.empty((bsz, h // 2, wd // 2, o), dtype=x.dtype, device=x.device)
-    CONV3X3_F.launch(x.data_ptr(), wk.data_ptr(), b32.data_ptr(), out.data_ptr(),
+    CONV3X3_F.launch(x.data_ptr(), wp.data_ptr(), b32.data_ptr(), out.data_ptr(),
                      bsz, h, wd, c, o, _MODES[x.dtype])
     return out
 
@@ -183,14 +210,14 @@ def conv3x3_f_bound(x, w, plain):
       order, each add rounded to nearest (within 2^-24 of a partial sum no
       larger than S): E_plain = (C + 9) / 2;
     - bf16: the products are exact in f32; the kernel adds them in
-      9 ceil(C / 16) ``mma.sync`` k16 steps of 16 products each. A tensor
-      core that aligns the 17 terms to the largest and truncates loses under
-      one unit of 2^-23 times that term (<= S) per term: E_kernel = 17 * 9
-      ceil(C / 16);
+      9 ceil(C / 16) ``wgmma`` k16 steps of 16 products each (per 16
+      channels, the 9 taps in turn). A tensor core that aligns the 17 terms
+      to the largest and truncates loses under one unit of 2^-23 times that
+      term (<= S) per term: E_kernel = 17 * 9 ceil(C / 16);
     - f32 (3xTF32): hi and lo of each operand leave a product within 3 *
-      2^-22 |x w| (6 units of 2^-23), and the kernel takes 3 k8 MMAs of 8
-      exact TF32 products each per 8 channels and tap: E_kernel = 6 + 27 * 9
-      ceil(C / 8).
+      2^-22 |x w| (6 units of 2^-23), and the kernel takes 3 ``wgmma`` k8
+      steps of 8 exact TF32 products each per 8 channels and tap: E_kernel =
+      6 + 27 * 9 ceil(C / 8).
 
     The factor 2 covers the rounding of each side's bias add and, in bf16,
     a rounding to x.dtype that crosses a binade. At C = 64: c = 1.55e-4
