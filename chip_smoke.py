@@ -15,9 +15,10 @@ without CUDA it exits non-zero before printing any result):
    every function of kernels A and B must hold integer ones, every function
    of kernel C float ones (HMMA or HGMMA), every function of kernel D
    warpgroup MMAs (HGMMA), kernel E's GEMM bodies HGMMA and its phase-(ii)
-   body tensor-core ones (HMMA or HGMMA)), and print each of D's and E's
-   functions' registers, stack and local bytes (``cuobjdump -res-usage``):
-   a stack frame or local memory in a function of kernel D (a spill) fails;
+   body tensor-core ones (HMMA or HGMMA), kernel F's s8 body IGMMA and its
+   bf16 body HGMMA), and print each of D's, E's and F's functions'
+   registers, stack and local bytes (``cuobjdump -res-usage``): a stack
+   frame or local memory in a function of kernel D (a spill) fails;
 3. kernel phase, at the attention model's 448² shapes and again at the
    baseline and bert models' 224² (conv0 224 -> 112, conv1 at 112, conv2-3
    at 56, conv4-5 at 28, conv6-7 at 14): each kernel mode of the serving and
@@ -57,6 +58,20 @@ without CUDA it exits non-zero before printing any result):
    PyTorch call does not compute its function), with the device time of
    each of their CUDA kernels (D's one, E's GEMM, phase (ii) and pooling
    launches) from ``torch.profiler``;
+   Then the probes phase (``probes_phase``): every timing probe of
+   ``vqa_tpu_torch.tools`` (the port of the TPU probes ``tools/exp_*.py``,
+   rows 6a-6k of PERF.md's table) at its default shapes and b160: each
+   variant's kernel held against its plain version (A, B and F bit-equal;
+   C within ``conv0_f_bound``, D within ``conv3x3_f_bound``): the
+   wrapper's b160 output, its first and last 2 samples against the plain
+   version on those samples (D and F every sample), F also on random small
+   integers at its full grid; then timed with PROBE_STEPS calls (wrapper,
+   launch alone, yardstick, plain where it fits, bound), the counts zeroed
+   just before each variant's timed calls and read just after, and the
+   last timed wrapper call's and launch's outputs held as before; kernel
+   F's rate against the published peaks and against one GEMM of its
+   operations. Kernel F's and kernel D's unpooled rows of the JSON lines
+   come from here;
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
    requests with each model at full width and its own image size (attention
    448², baseline and bert 224²), batch 32, ``--opt_lvl 1`` (int8 stages
@@ -156,8 +171,8 @@ without CUDA it exits non-zero before printing any result):
 Per-path launch counts go on a line of their own. The line before the last
 is a JSON object of per-kernel launches (kernels A and B: the attention
 model's serving path; kernel C: its float-route training run; kernels D and
-E: their paths in ``last_kernels_phase``), errors, times and bounds; the
-last is ``{"ok": true, "device": {...}}``.
+E: their paths in ``last_kernels_phase``; kernel F: the probes phase),
+errors, times and bounds; the last is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -169,6 +184,10 @@ import re
 import subprocess
 import sys
 import time
+
+# the card's peaks, the bound rule and the timers, shared with the probes
+from vqa_tpu_torch.tools._probe import (BF16_FLOPS, F32_FLOPS, INT8_OPS, TF32_FLOPS, bound,
+                                        card_line, cuda_ms, cudnn_conv, nbytes)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -198,30 +217,9 @@ DECODE_THREADS = 8
 # vqa_tpu's bound on the native decoder's distance from PIL (another DCT
 # method and resampler): mean absolute difference per channel value
 NATIVE_PIL_MEAN_ABS = 12.0
-# H100 SXM peaks (NVIDIA's data sheet, dense, 700 W): HBM bytes/s, int8
-# tensor-core ops/s, bf16 tensor-core FLOP/s (f32 sums), f32 CUDA-core FLOP/s
-HBM_BPS, INT8_OPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 1979e12, 989e12, 67e12
-# TF32 tensor-core FLOP/s: an f32-accurate product costs three TF32 MMAs
-# (3xTF32), the card's fastest way to kernel C's f32 function
-TF32_FLOPS = 494.7e12
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip().splitlines()
-    return out[0]
-
-
-def cuda_ms(fn, n: int) -> float:
-    import torch
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+# the timing probes (vqa_tpu_torch.tools): bench.py's default batch, as the
+# TPU probes' BENCH_BATCH, and timed calls a variant
+PROBE_BATCH, PROBE_STEPS = 160, 4
 
 
 def timed_pair(kernel_fn, plain_fn, n_kernel=20, n_plain=2):
@@ -272,17 +270,6 @@ def dispatch_pair(op_fn, direct_fn, rounds=6):
     return min(ops), min(directs)
 
 
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound(bytes_moved: int, ops: float, peak: float):
-    """(ms, what sets it): the larger of bytes over the memory rate and
-    operations over the peak rate for their type."""
-    t_bytes, t_ops = bytes_moved / HBM_BPS, ops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def sass_counts():
     """Tensor-core instructions in each kernel's SASS (``cuobjdump -sass``),
     by function: {source: {function: {opcode: count}}}; checks them, and
@@ -331,7 +318,11 @@ def sass_counts():
     a_funcs = counts["conv0_s2d_i8.cu"]
     if not a_funcs or not all(set(ops) & {"IMMA", "IGMMA"} for ops in a_funcs.values()):
         raise AssertionError("a function of kernel A lacks integer tensor-core instructions")
-    for source in ("conv3x3_f.cu", "coattention_fwd.cu"):
+    f_funcs = counts["mma_rate.cu"]
+    if len(f_funcs) != 2 or not any("IGMMA" in ops for ops in f_funcs.values()) \
+            or not all("HGMMA" in ops or "IGMMA" in ops for ops in f_funcs.values()):
+        raise AssertionError("kernel F lacks its s8 (IGMMA) or bf16 (HGMMA) warpgroup MMAs")
+    for source in ("conv3x3_f.cu", "coattention_fwd.cu", "mma_rate.cu"):
         usage = resource_usage(tool, _build._lib_path(source))
         for fn, res in usage.items():
             print(f"resources {source} {fn}: registers {res['REG']}, stack {res['STACK']} B, "
@@ -436,17 +427,15 @@ class KernelRows:
 
 
 def cudnn_conv_ms(x, w) -> float:
-    """ms of ``F.conv2d`` (cuDNN, pad 1) on NHWC ``x`` and HWIO ``w`` read as
-    NCHW / OIHW: the conv alone, no bias, ReLU or pool, in full f32 for f32
-    (TF32 off: with TF32 on, cuDNN computes a less accurate function). A
-    yardstick, never called by the port."""
+    """ms of ``_probe.cudnn_conv``'s ``F.conv2d`` (cuDNN, pad 1: the conv
+    alone, no bias, ReLU or pool) in full f32 for f32 (TF32 off: with TF32
+    on, cuDNN computes a less accurate function). A yardstick, never called
+    by the port."""
     import torch
-    import torch.nn.functional as F
-    x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        lib = lambda: F.conv2d(x_nchw, w_oihw, padding=1)    # noqa: E731
+        lib = cudnn_conv(x, w)[0]
         return timed_pair(lib, lib, n_plain=20)[0]
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
@@ -690,7 +679,7 @@ def last_kernels_phase(dev, seq_len: int, card: str):
     print(f"launches path=conv_bn_relu_pool_float_and_coattention_fused: {json.dumps(launches)} "
           f"({time.perf_counter() - t0:.2f} s)", flush=True)
     if launches != {"conv0_s2d_i8": 0, "conv3x3_i8": 0, "conv0_f": 0, "conv3x3_f": len(convs),
-                    "coattention_fwd": len(attn)} or any(plain.values()):
+                    "coattention_fwd": len(attn), "mma_rate": 0} or any(plain.values()):
         raise AssertionError(f"the float pooled conv and co-attention paths: launches "
                              f"{launches}, plain versions on CUDA tensors {plain}")
 
@@ -787,6 +776,41 @@ def last_kernels_phase(dev, seq_len: int, card: str):
               f"{dispatch_line(disp)} ({card})", flush=True)
     return ({image: kr.rows for image, kr in rows.items()},
             {"conv3x3_f": launches["conv3x3_f"], "coattention_fwd": launches["coattention_fwd"]})
+
+
+def probes_phase(dev, card: str):
+    """The port's timing probes (``vqa_tpu_torch.tools``, rows 6a-6k of
+    PERF.md's table of TPU kernels) at their default shapes and b160: each
+    variant checked against its plain version, then timed (``_probe.run``:
+    the kernel's counts zeroed just before its timed calls and read just
+    after, and held to the number of calls). Returns the rows, and the
+    kernels' launches summed over the timed calls."""
+    import importlib
+
+    import torch
+    from vqa_tpu_torch.tools import PROBES, _probe
+
+    t0 = time.perf_counter()
+    rows, launches = [], {}
+    for name in PROBES:
+        mod = importlib.import_module(f"vqa_tpu_torch.tools.{name}")
+        got = _probe.run(mod.variants(dev, PROBE_BATCH), PROBE_STEPS, card)
+        if name == "exp_r5_mosaic_dot":
+            mod.run_rates(got)
+        for r in got:
+            launches[r["kernel"]] = launches.get(r["kernel"], 0) + r["launches"]
+            plain = "not timed" if r["plain_ms"] is None else f"{r['plain_ms']:.4f} ms"
+            at = "" if r["library_batch"] is None else f" at b{r['library_batch']}"
+            print(f"probe {r['row']} {name} {r['variant']} ({r['kernel']}, {r['mode']}; "
+                  f"{r['shape']}): wrapper {r['ms']:.4f} ms, launch {r['launch_ms']:.4f} ms "
+                  f"({100 * r['share_of_bound']:.1f}% of its bound {r['bound_ms']:.4f} ms, "
+                  f"{r['bound_by']}), {r['library']}{at} {r['library_ms']:.4f} ms, plain "
+                  f"{plain}; max_abs_err {r['max_abs_err']} ({card})", flush=True)
+        rows += got
+        torch.cuda.empty_cache()
+    print(f"launches path=probes: {json.dumps(launches)}", flush=True)
+    print(f"probes phase: {time.perf_counter() - t0:.2f} s ({card})", flush=True)
+    return rows, launches
 
 
 def write_requests():
@@ -1748,6 +1772,20 @@ def main() -> int:
         rows[image].update(image_rows)
     print(f"kernels D and E phase: {time.perf_counter() - t0:.2f} s ({card})", flush=True)
     torch.cuda.empty_cache()
+    probe_rows, probe_launches = probes_phase(dev, card)
+    # kernel F's rows and kernel D's unpooled mode (probe 6e) join the JSON
+    # lines' rows; F's yardstick is one GEMM of its operations
+    # (exp_r5_mosaic_dot.stacked_operands)
+    for r in probe_rows:
+        f_row = r["kernel"] == "mma_rate"
+        if f_row or r["variant"] == "tap_bf16_nopool":
+            rows[IMAGE][(r["kernel"], r["variant"] if f_row else "unpooled bf16")] = {
+                **{f: r[f] for f in ("max_abs_err", "ms", "launch_ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+                "library_ms": r["library_ms"],
+                **({} if f_row else {"batch": PROBE_BATCH})}
+    del probe_rows
+    torch.cuda.empty_cache()
     serve_launches, export_launches = {}, {}
     forwards = -(-N_REQUESTS // BATCH)
     for model_name in ("attention", "baseline", "bert"):
@@ -1790,28 +1828,29 @@ def main() -> int:
                 "max_abs_err": max(v["max_abs_err"] for rs in rows.values()
                                    for (name, _), v in rs.items() if name == k.symbol),
                 **{f: r[f] for f in ("ms", "launch_ms", "plain_ms", "bound_ms", "bound_by",
-                                     "library_ms", "cuda_core_bound_ms") if f in r},
-                "dispatch_us": (r["op_host_us"] - r["direct_host_us"]) / r["calls"]}
+                                     "library_ms", "cuda_core_bound_ms", "batch") if f in r},
+                **({"dispatch_us": (r["op_host_us"] - r["direct_host_us"]) / r["calls"]}
+                   if "calls" in r else {})}
 
     # the JSON line's modes: kernel A's requant, kernel B's conv1-7 static
     # path summed, kernel C in bf16; every mode at 448² and at 224² on the
     # lines above it
     json_modes = {"conv0_s2d_i8": "static requant", "conv3x3_i8": "static", "conv0_f": "bf16",
-                  "conv3x3_f": "bf16", "coattention_fwd": "bf16"}
+                  "conv3x3_f": "bf16", "coattention_fwd": "bf16", "mma_rate": "s8 K=128 ndots=12"}
     for image, models in ((IMAGE, "attention"), (IMAGE_224, "baseline and bert")):
-        print(f"kernels at {image}² (b32; {models}): " + json.dumps([
+        print(f"kernels at {image}² (b32 unless a row names its batch; {models}): " + json.dumps([
             {**kernel_fields(image, k, mode), "mode": mode}
             for k in _build.KERNELS for (name, mode) in rows[image] if name == k.symbol]),
             flush=True)
     by_path = {**{f"serve {m}": v for m, v in serve_launches.items()}, **export_launches,
-               **train_launches}
+               **train_launches, "probes": probe_launches}
     print("launches by path: " + json.dumps(by_path), flush=True)
     # launches: kernels A and B from the attention model's serving path,
-    # kernel C from its float-route training run (each read just after its
-    # own run)
+    # kernel C from its float-route training run, D and E from their paths,
+    # F from the probes (each read just after its own run)
     path_launches = {**serve_launches["attention"],
                      "conv0_f": train_launches["train float attention"]["conv0_f"],
-                     **last_launches}
+                     **last_launches, "mma_rate": probe_launches["mma_rate"]}
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {**kernel_fields(IMAGE, k, json_modes[k.symbol]), "launches": path_launches[k.symbol]}

@@ -152,7 +152,9 @@ def _port_sources():
 
 
 def test_port_imports_nothing_of_vqa_tpu():
-    pattern = re.compile(r"^\s*(from|import) vqa_tpu(\.|\s|$)")
+    """Nothing of vqa_tpu, nor of the JAX probes under tools/ (the port's
+    own probes are vqa_tpu_torch.tools)."""
+    pattern = re.compile(r"^\s*(from|import) (vqa_tpu|tools)(\.|\s|$)")
     bad = []
     for path in _port_sources():
         with open(path) as f:
@@ -161,8 +163,10 @@ def test_port_imports_nothing_of_vqa_tpu():
 
 
 def test_port_modules_import_no_jax():
-    code = ("import sys; import vqa_tpu_torch.main, vqa_tpu_torch.serve, "
-            "vqa_tpu_torch.data.images, vqa_tpu_torch.train.checkpoint; "
+    code = ("import sys, importlib; import vqa_tpu_torch.main, vqa_tpu_torch.serve, "
+            "vqa_tpu_torch.data.images, vqa_tpu_torch.train.checkpoint, vqa_tpu_torch.tools; "
+            "[importlib.import_module('vqa_tpu_torch.tools.' + m) "
+            "for m in vqa_tpu_torch.tools.PROBES]; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'vqa_tpu')]; assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)

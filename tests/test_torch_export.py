@@ -313,17 +313,21 @@ def _op_cases():
         "conv3x3_f": [(f32(1, 5, 6, 8, lo=-1, hi=1), f32(3, 3, 8, 16, lo=-0.2, hi=0.2),
                        f32(16, lo=-0.1, hi=0.1)),
                       (f32(2, 4, 7, 8, lo=-1, hi=1).bfloat16(), f32(3, 3, 8, 16, lo=-0.2, hi=0.2),
-                       f32(16, lo=-0.1, hi=0.1))],
+                       f32(16, lo=-0.1, hi=0.1)),
+                      (f32(2, 4, 7, 8, lo=-1, hi=1).bfloat16(), f32(3, 3, 8, 16, lo=-0.2, hi=0.2),
+                       f32(16, lo=-0.1, hi=0.1), False)],
         "coattention_fwd": [(f32(2, 6, 32, lo=-1, hi=1).to(dt), f32(2, 3, 4, 32, lo=-1, hi=1).to(dt),
                              f32(32, 32, lo=-0.2, hi=0.2), f32(32, lo=-0.1, hi=0.1),
                              f32(32, 32, lo=-0.2, hi=0.2), f32(32, lo=-0.1, hi=0.1),
                              f32(32, 1, lo=-0.2, hi=0.2), f32(32, 1, lo=-0.2, hi=0.2))
                             for dt in (torch.float32, torch.bfloat16)],
+        "mma_rate": [(i8(2, 2, 64, 128), i8(3, 128, 128)),
+                     (i8(2, 1, 128, 64).bfloat16(), i8(2, 64, 128).bfloat16())],
     }
 
 
 @pytest.mark.parametrize("name", ["conv0_i8", "int8_conv3x3", "conv0_f", "conv3x3_f",
-                                  "coattention_fwd"])
+                                  "coattention_fwd", "mma_rate"])
 def test_kernel_operator_opcheck(name):
     """torch.library.opcheck on the CPU: the schema, the autograd
     registration, the fake (export's tracing) against the CPU

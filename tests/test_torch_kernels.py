@@ -76,7 +76,7 @@ def test_plain_pool_equals_pool_after_epilogue():
 def test_kernels_name_their_sources_and_tpu_counterparts():
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     assert [k.symbol for k in _build.KERNELS] == [
-        "conv0_s2d_i8", "conv3x3_i8", "conv0_f", "conv3x3_f", "coattention_fwd"]
+        "conv0_s2d_i8", "conv3x3_i8", "conv0_f", "conv3x3_f", "coattention_fwd", "mma_rate"]
     for k in _build.KERNELS:
         assert os.path.exists(os.path.join(_build.CSRC, k.source))
         for part in k.replaces.split(", "):
@@ -779,7 +779,7 @@ def test_kernels_repeat_bit_for_bit_on_card(cuda):
     _build.reset_counts()
     for call in calls:
         assert torch.equal(call(), call())
-    assert [k.launches for k in _build.KERNELS] == [2, 2, 4, 4, 4]
+    assert [k.launches for k in _build.KERNELS] == [2, 2, 4, 4, 4, 0]
 
 
 # (shape (B, H, W), C_in, C_out): odd H and W (pooled 9 x 18, partial 4 x
@@ -817,6 +817,65 @@ def test_kernel_d_matches_plain_on_card(cuda, mode, case):
     assert tuple(out.shape) == (shape[0], shape[1] // 2, shape[2] // 2, o)
     diff = (out.float() - ref.float()).abs()
     assert bool((diff <= conv_hpack.conv3x3_f_bound(x, w, ref)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["odd", "channels_96_200", "channels_8", "conv1_224",
+                                  "conv1_448"])
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+def test_kernel_d_unpooled_matches_plain_on_card(cuda, mode, case):
+    """Kernel D's unpooled mode (``conv3x3_f(..., pool=False)``, every conv
+    pixel stored) within ``conv3x3_f_bound(pool=False)`` of
+    ``conv3x3_f_plain(pool=False)``, at the pooled test's shapes (odd H and
+    W: the last partial tile's rows and columns are stored too)."""
+    shape, c, o = KERNEL_D_CASES[case]
+    g = torch.Generator().manual_seed(16)
+    x = torch.relu(torch.randn((*shape, c), generator=g)).to(cuda, TORCH_DT[mode])
+    w = (torch.randn((3, 3, c, o), generator=g) * 0.1).to(cuda)
+    b = (torch.randn(o, generator=g) * 0.1).to(cuda)
+    _build.reset_counts()
+    out = conv_hpack.conv3x3_f(x, w, b, pool=False)
+    assert _build.CONV3X3_F.launches == 1 and out.dtype == TORCH_DT[mode]
+    ref = conv_hpack.conv3x3_f_plain(x, w, b, pool=False)
+    assert _build.CONV3X3_F.plain_on_cuda == 1 and tuple(out.shape) == (*shape, o)
+    diff = (out.float() - ref.float()).abs()
+    assert bool((diff <= conv_hpack.conv3x3_f_bound(x, w, ref, pool=False)).all())
+
+
+# (G, R, W, K, ndots): the TPU probe's three contraction depths (M = R W =
+# 3,584, the output rows W = 224) at a few steps, and small shapes: one unit
+# a step (M 128, all rows stored), and W 100 (M 3,200: rows 100-127 of the
+# first unit computed but not stored, a warp's rows split by the edge)
+KERNEL_F_CASES = {"k128": (3, 16, 224, 128, 12), "k256": (3, 16, 224, 256, 6),
+                  "k512": (3, 16, 224, 512, 3), "one_unit": (5, 1, 128, 128, 1),
+                  "w100": (2, 32, 100, 256, 2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", ["twos", "random"])
+@pytest.mark.parametrize("case", list(KERNEL_F_CASES))
+@pytest.mark.parametrize("mode", ["int8", "bfloat16"])
+def test_kernel_f_equals_plain_on_card(cuda, mode, case, values):
+    """Kernel F (``mma_rate``) equals ``mma_rate_plain`` bit for bit: the
+    TPU probe's all-2 operands, and random integers in [-8, 8] whose sums
+    stay exact in f32 (a fault in the layout shows there, not with 2s)."""
+    from vqa_tpu_torch.ops import mma_rate
+
+    g_, r, wd, k, nd = KERNEL_F_CASES[case]
+    dt = torch.int8 if mode == "int8" else torch.bfloat16
+    if values == "twos":
+        x, w = torch.full((g_, r, wd, k), 2), torch.full((nd, k, 128), 2)
+    else:
+        gen = torch.Generator().manual_seed(17)
+        x = torch.randint(-8, 9, (g_, r, wd, k), generator=gen)
+        w = torch.randint(-8, 9, (nd, k, 128), generator=gen)
+    x, w = x.to(cuda, dt), w.to(cuda, dt)
+    _build.reset_counts()
+    out = mma_rate.mma_rate(x, w)
+    assert _build.MMA_RATE.launches == 1
+    ref = mma_rate.mma_rate_plain(x, w)
+    assert out.dtype == ref.dtype and tuple(out.shape) == (g_, wd, 128)
+    assert torch.equal(out, ref)
 
 
 def _kernel_e_inputs(shape, g, device):
@@ -895,7 +954,7 @@ def test_float_conv0_route_raises_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["conv0_i8", "int8_conv3x3", "conv0_f", "conv3x3_f",
-                                  "coattention_fwd"])
+                                  "coattention_fwd", "mma_rate"])
 def test_kernel_operators_pass_opcheck_on_card(cuda, name):
     """``torch.library.opcheck`` of each registered operator on CUDA tensors
     (its CUDA implementation, which launches the kernel, against its fake),
@@ -926,9 +985,15 @@ def test_kernel_operators_pass_opcheck_on_card(cuda, name):
         "conv3x3_f": [(torch.randn((2, 8, 10, 16), generator=g), torch.randn(3, 3, 16, 64) * 0.1,
                        b64),
                       (torch.randn((2, 9, 11, 16), generator=g).bfloat16(),
-                       torch.randn(3, 3, 16, 64) * 0.1, b64)],
+                       torch.randn(3, 3, 16, 64) * 0.1, b64),
+                      (torch.randn((2, 9, 11, 16), generator=g).bfloat16(),
+                       torch.randn(3, 3, 16, 64) * 0.1, b64, False)],
         "coattention_fwd": [(v.to(dt), q.to(dt), *params) for dt in (torch.float32, torch.bfloat16)
                             for v, q, params in [_kernel_e_inputs((2, 16, 5, 64), g, "cpu")]],
+        "mma_rate": [(torch.randint(-8, 9, (2, 2, 64, 128), generator=g, dtype=torch.int8),
+                      torch.randint(-8, 9, (3, 128, 128), generator=g, dtype=torch.int8)),
+                     (torch.randint(-8, 9, (2, 1, 128, 64), generator=g).bfloat16(),
+                      torch.randint(-8, 9, (2, 64, 128), generator=g).bfloat16())],
     }
     op = library.OPS[name]
     for args in cases[name]:

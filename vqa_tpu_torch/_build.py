@@ -156,7 +156,7 @@ CONV0_F = CudaKernel(
 
 CONV3X3_F = CudaKernel(
     "conv3x3_f.cu", "conv3x3_f",
-    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     replaces="vqa_tpu/ops/conv_hpack.py:104 (_kernel with int8=False)")
 
 COATTENTION_FWD = CudaKernel(
@@ -164,7 +164,12 @@ COATTENTION_FWD = CudaKernel(
     [_P] * 14 + [_I, _I, _I, _I, _I, _P],
     replaces="tools/retired/coattention_kernel.py:45 (_kernel)")
 
-KERNELS = (CONV0_S2D_I8, CONV3X3_I8, CONV0_F, CONV3X3_F, COATTENTION_FWD)
+MMA_RATE = CudaKernel(
+    "mma_rate.cu", "mma_rate",
+    [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    replaces="tools/exp_r5_mosaic_dot.py:37 (_kernel)")
+
+KERNELS = (CONV0_S2D_I8, CONV3X3_I8, CONV0_F, CONV3X3_F, COATTENTION_FWD, MMA_RATE)
 
 
 def build_all() -> None:

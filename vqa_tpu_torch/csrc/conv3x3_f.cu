@@ -1,4 +1,4 @@
-// Kernel D: float NHWC conv3x3 (pad 1) + bias + ReLU + 2x2 maxpool, bf16 or f32.
+// Kernel D: float NHWC conv3x3 (pad 1) + bias + ReLU (+ 2x2 maxpool), bf16 or f32.
 //
 // Replaces the float route (int8 off, the default) of the Pallas TPU kernel
 // vqa_tpu/ops/conv_hpack.py:_kernel, reached through _conv_hpack's
@@ -66,6 +66,16 @@
 // C and C_out must be multiples of 8; a slice's channels past C_out have zero
 // weights and are not stored, K chunks past C arrive as zeros. Odd H or W
 // floor (VALID pool).
+//
+// Unpooled mode (POOL = false, a compile-time flag, so the pooled bodies
+// compile as they did): the same mainloop, and an epilogue that stores
+// every conv pixel, f32 sum + bias, ReLU and one rounding to x.dtype. The
+// tile's outputs (4 times the pooled bytes) are staged 64 bytes of channels
+// a pixel at a time (32 bf16 or 16 f32 channels; 10 KB a stream of 8 x 16
+// pixels), each chunk written with 16-byte coalesced stores, so the
+// staging stays small beside the resident weights. It is the float route
+// of the Pallas probe tools/exp_nhwc_tap.py:_kernel (int8=False), the
+// unpooled conv1 that probe times; no model path runs it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -99,6 +109,8 @@ template <typename T> struct Layout {
   static constexpr int TAP_BYTES = BN * 32;
   static constexpr int W_CHUNK = 9 * TAP_BYTES * Traits<T>::PARTS;    // one chunk's slice
   static constexpr int RS = BN * static_cast<int>(sizeof(T)) + 16;    // staging row stride
+  // unpooled: 64 bytes of channels a pixel a chunk, rows padded to 80 bytes
+  static constexpr int UCH = 64 / static_cast<int>(sizeof(T)), URS = 80;
   static_assert(W_CHUNK % 128 == 0, "regions must stay 128-byte aligned");
 };
 
@@ -129,12 +141,12 @@ __device__ __forceinline__ void store2(unsigned char* p, float a, float b, float
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <typename T>
+template <typename T, bool POOL>
 __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
     const __grid_constant__ CUtensorMap xmap,   // x [B, H, W, C] as (C, W, H, B)
     const unsigned char* __restrict__ wp,       // pack_conv3x3_f_weights
     const float* __restrict__ bias,             // [Cout]
-    T* __restrict__ out,                        // [B, H/2, W/2, Cout]
+    T* __restrict__ out,                        // [B, H/2, W/2, Cout], unpooled [B, H, W, Cout]
     const Params p) {
   using L = Layout<T>;
   constexpr int CK = Traits<T>::CK;
@@ -298,6 +310,47 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
       if (lane == 0) sm90::mbar_arrive(empty0 + 8 * (sn * MAX_STAGES + (k - 1) % p.stages));
     }
 
+    if constexpr (!POOL) {
+      // acc[mt][4j + 2hf + e]: conv pixel (row 2w + hf, column col0 + 8 mt +
+      // g) of the tile, channel n0 + 8j + 2q + e; per chunk of UCH channels
+      // the stream stages its tile's pixels (the staging and, in f32, every
+      // split of this tile are free: wait<0> above and the barrier)
+      const int b = u / p.tiles_img, r = u % p.tiles_img;
+      const int oy0 = (r / p.tiles_w) * TH, ox0 = (r % p.tiles_w) * tw;
+      constexpr int JC = L::UCH / 8;             // j steps a chunk
+#pragma unroll
+      for (int ck = 0; ck < BN / L::UCH; ++ck) {
+        if (n0 + ck * L::UCH >= p.Cout) break;   // block-uniform
+        sm90::named_barrier(bar_id, nts);
+#pragma unroll
+        for (int jj = 0; jj < JC; ++jj) {
+          const int j = ck * JC + jj;
+          if (n0 + 8 * j >= p.Cout) break;     // warp-uniform: Cout % 8 == 0
+          const float b0 = __ldg(bias + n0 + 8 * j + 2 * q), b1 = __ldg(bias + n0 + 8 * j + 2 * q + 1);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int hf = 0; hf < 2; ++hf) {
+              const float v0 = __fadd_rn(acc[mt][4 * j + 2 * hf], b0);
+              const float v1 = __fadd_rn(acc[mt][4 * j + 2 * hf + 1], b1);
+              store2(staging + ((2 * w + hf) * tw + col0 + 8 * mt + g) * L::URS +
+                         (8 * jj + 2 * q) * sizeof(T),
+                     v0 > 0.f ? v0 : 0.f, v1 > 0.f ? v1 : 0.f, static_cast<T*>(nullptr));
+            }
+        }
+        sm90::named_barrier(bar_id, nts);
+        constexpr int PER16 = 16 / static_cast<int>(sizeof(T));       // channels a piece
+        for (int i = ts; i < TH * tw * 4; i += nts) {
+          const int pix = i >> 2, kk = i & 3;
+          const int oy = oy0 + pix / tw, ox = ox0 + pix % tw, o = n0 + ck * L::UCH + kk * PER16;
+          if (oy >= p.Ho || ox >= p.Wo || o >= p.Cout) continue;
+          *reinterpret_cast<int4*>(out + ((static_cast<size_t>(b) * p.Ho + oy) * p.Wo + ox) * p.Cout + o) =
+              *reinterpret_cast<const int4*>(staging + pix * L::URS + kk * 16);
+        }
+      }
+      continue;
+    }
+
     // Epilogue. acc[mt][4j + 2hf + e]: M row 16w + g + 8hf = tile pixel
     // (2w + hf, col0 + 8 mt + g), channel n0 + 8j + 2q + e. The staging
     // is free: the stream's last stores have read it, and (f32) every
@@ -341,9 +394,10 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
 
 // The shared memory of a schedule: 2 streams with resident weights where
 // they fit, else 1 stream, resident or streaming the weights. Returns the
-// bytes, 0 if the schedule does not fit in `optin`.
+// bytes, 0 if the schedule does not fit in `optin`. Unpooled, the epilogue
+// stages 64 bytes of channels of each of the stream's tile's pixels.
 template <typename T>
-int plan(Params& p, int streams, int resident, int optin) {
+int plan(Params& p, int streams, int resident, int optin, bool pool) {
   using L = Layout<T>;
   p.streams = streams;
   p.resident = resident;
@@ -351,7 +405,7 @@ int plan(Params& p, int streams, int resident, int optin) {
   p.halo_w = tw + 2;
   p.half_bytes = round128(HALO_H * p.halo_w * 16);
   const int halo_bytes = 2 * p.half_bytes;
-  const int staging = PH * (PW / streams) * L::RS;
+  const int staging = pool ? PH * (PW / streams) * L::RS : TH * (TW / streams) * L::URS;
   const int split = Traits<T>::PARTS == 2 ? 2 * 2 * halo_bytes : 0;
   p.region = round128(staging > split ? staging : split);
   p.stage_bytes = halo_bytes + (resident ? 0 : L::W_CHUNK);
@@ -363,11 +417,11 @@ int plan(Params& p, int streams, int resident, int optin) {
   return fixed + streams * p.stages * p.stage_bytes;
 }
 
-template <typename T>
+template <typename T, bool POOL>
 int launch(const void* x, const void* w, const void* bias, void* out, int B, int H, int W,
            int C, int Cout, cudaStream_t st) {
   constexpr int CK = Traits<T>::CK;
-  const int Ho = H / 2, Wo = W / 2;
+  const int Ho = POOL ? H / 2 : H, Wo = POOL ? W / 2 : W;
   if (B == 0 || Ho == 0 || Wo == 0 || Cout == 0) return static_cast<int>(cudaSuccess);
   int sms = 0, optin = 0;
   cudaError_t e = sm90::device_limits(&sms, &optin);
@@ -376,14 +430,16 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
   Params p;
   p.H = H, p.W = W, p.C = C, p.Cout = Cout, p.Ho = Ho, p.Wo = Wo;
   p.nch = (C + CK - 1) / CK;
-  int smem = plan<T>(p, 2, 1, optin);
-  if (smem == 0) smem = plan<T>(p, 1, 1, optin);
-  if (smem == 0) smem = plan<T>(p, 1, 0, optin);
+  int smem = plan<T>(p, 2, 1, optin, POOL);
+  if (smem == 0) smem = plan<T>(p, 1, 1, optin, POOL);
+  if (smem == 0) smem = plan<T>(p, 1, 0, optin, POOL);
   if (smem == 0) return static_cast<int>(cudaErrorInvalidValue);
-  p.tiles_w = (Wo + PW / p.streams - 1) / (PW / p.streams);
-  p.tiles_img = ((Ho + PH - 1) / PH) * p.tiles_w;
+  // a tile's outputs: PH x PW / streams pooled, TH x TW / streams unpooled
+  const int oh = POOL ? PH : TH, ow = (POOL ? PW : TW) / p.streams;
+  p.tiles_w = (Wo + ow - 1) / ow;
+  p.tiles_img = ((Ho + oh - 1) / oh) * p.tiles_w;
   p.units = B * p.tiles_img;
-  e = sm90::allow_smem<conv3x3_f_kernel<T>>(smem);
+  e = sm90::allow_smem<conv3x3_f_kernel<T, POOL>>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   CUtensorMap xmap;
@@ -404,7 +460,7 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
   int per_slice = sms / slices;
   if (per_slice < 1) per_slice = 1;
   if (per_slice > p.units) per_slice = p.units;
-  conv3x3_f_kernel<T><<<per_slice * slices, THREADS, smem, st>>>(
+  conv3x3_f_kernel<T, POOL><<<per_slice * slices, THREADS, smem, st>>>(
       xmap, static_cast<const unsigned char*>(w), static_cast<const float*>(bias),
       static_cast<T*>(out), p);
   return static_cast<int>(cudaGetLastError());
@@ -418,16 +474,20 @@ extern "C" const char* vqa_cuda_error_string(int code) {
 
 // mode: 0 = f32 x and out; 1 = bf16. w: ops/conv_hpack.pack_conv3x3_f_weights
 // (bf16, or f32 TF32 hi/lo), bias [Cout] f32. x and w 16-byte aligned, C and
-// Cout multiples of 8. Returns cudaGetLastError() after the launch (0 = success).
+// Cout multiples of 8. pool: 1 = 2x2 maxpool, 0 = every pixel stored.
+// Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int conv3x3_f(const void* x, const void* w, const void* bias, void* out,
-                         int B, int H, int W, int C, int Cout, int mode, void* stream) {
+                         int B, int H, int W, int C, int Cout, int mode, int pool,
+                         void* stream) {
   if (C % 8 != 0 || Cout % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
       reinterpret_cast<uintptr_t>(w) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case 0: return launch<float>(x, w, bias, out, B, H, W, C, Cout, st);
-    case 1: return launch<__nv_bfloat16>(x, w, bias, out, B, H, W, C, Cout, st);
+  switch (2 * mode + (pool ? 1 : 0)) {
+    case 0: return launch<float, false>(x, w, bias, out, B, H, W, C, Cout, st);
+    case 1: return launch<float, true>(x, w, bias, out, B, H, W, C, Cout, st);
+    case 2: return launch<__nv_bfloat16, false>(x, w, bias, out, B, H, W, C, Cout, st);
+    case 3: return launch<__nv_bfloat16, true>(x, w, bias, out, B, H, W, C, Cout, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -18,7 +18,9 @@ here the input stays plain NHWC. Two hand-written kernels:
   the weights, :func:`pack_conv3x3_f_weights`, in shared memory where it
   fits). :func:`conv3x3_f` is its wrapper,
   :func:`conv3x3_f_plain` its arithmetic, and the kernel is held within
-  :func:`conv3x3_f_bound` of it.
+  :func:`conv3x3_f_bound` of it. With ``pool=False`` it stores every conv
+  pixel (the float route of the unpooled probe tools/exp_nhwc_tap.py; no
+  model path runs it).
 
 Each wrapper calls its registered operator (``ops.library``): a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version.
@@ -31,7 +33,7 @@ import torch.nn.functional as F
 
 from .._build import CONV3X3_F, CONV3X3_I8
 from .conv_stage1 import tf32_rna, ulp
-from .quant import activation_quant, const, epilogue, int_conv3x3, weight_quant
+from .quant import const, epilogue, int8_operands, int_conv3x3
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -110,49 +112,53 @@ def launch_int8_conv3x3(x_q, wp, scale, bias, *, pool: bool, s_next=None,
     return out
 
 
-def _pooled_conv_sums(x32, w32):
-    """The 2x2 max over the f32 sums of a conv3x3 (pad 1) of f32 NHWC ``x32``
-    and HWIO ``w32``: one f32 matmul over C per tap, the taps added in
-    (kh, kw) order. Odd H/W floor (VALID pool): the last row or column is
-    not computed."""
+def _conv_sums(x32, w32, pool: bool = True):
+    """The f32 sums of a conv3x3 (pad 1) of f32 NHWC ``x32`` and HWIO
+    ``w32``: one f32 matmul over C per tap, the taps added in (kh, kw)
+    order; with ``pool`` their 2x2 max (odd H/W floor, VALID pool: the last
+    row or column is not computed)."""
     bsz, h, wd, _ = x32.shape
-    ho, wo = h // 2, wd // 2
+    ho, wo = (h // 2, wd // 2) if pool else (h, wd)
+    rows, cols = (2 * ho, 2 * wo) if pool else (h, wd)
     xp = F.pad(x32, (0, 0, 1, 1, 1, 1))
     acc = None
     for kh in range(3):
         for kw in range(3):
-            t = xp[:, kh:kh + 2 * ho, kw:kw + 2 * wo, :] @ w32[kh, kw]
+            t = xp[:, kh:kh + rows, kw:kw + cols, :] @ w32[kh, kw]
             acc = t if acc is None else acc + t
+    if not pool:
+        return acc
     return acc.reshape(bsz, ho, 2, wo, 2, -1).amax(dim=(2, 4))
 
 
-def conv3x3_f_plain(x, w, b):
+def conv3x3_f_plain(x, w, b, pool: bool = True):
     """Kernel D's arithmetic in plain PyTorch, the float route's reference:
     the semantics of vqa_tpu's Pallas ``_kernel`` with ``int8=False``.
 
     The weights are rounded to x.dtype, every product of x.dtype operands is
     summed in f32 (f32 matmuls, full f32: TF32 off as PyTorch's default),
-    the 2x2 pool is a max over the f32 sums, then + b in f32 (b is not
-    rounded to x.dtype, as ``_conv_hpack`` widens it), ReLU, one rounding to
-    x.dtype. It differs from vqa_tpu's CPU fallback ``_xla_reference``,
-    which rounds the conv to x.dtype before the bias.
+    the 2x2 pool (with ``pool``) is a max over the f32 sums, then + b in f32
+    (b is not rounded to x.dtype, as ``_conv_hpack`` widens it), ReLU, one
+    rounding to x.dtype. It differs from vqa_tpu's CPU fallback
+    ``_xla_reference``, which rounds the conv to x.dtype before the bias.
     """
     if x.is_cuda:
         CONV3X3_F.plain_on_cuda += 1
     w32 = w.to(x.device, x.dtype).float()
-    m = _pooled_conv_sums(x.float(), w32)
+    m = _conv_sums(x.float(), w32, pool)
     return torch.relu(m + b.to(x.device).float()).to(x.dtype)
 
 
-def conv3x3_f(x, w, b):
-    """Float conv3x3 (pad 1) + bias + ReLU + 2x2 maxpool (VALID: odd H/W floor).
+def conv3x3_f(x, w, b, pool: bool = True):
+    """Float conv3x3 (pad 1) + bias + ReLU (+ 2x2 maxpool, VALID: odd H/W floor).
 
     ``x`` NHWC [B, H, W, C] float32 or bfloat16; ``w`` HWIO [3, 3, C, O]
     (rounded to x.dtype) and ``b`` [O] (taken as f32), BN-folded. Returns
-    [B, H//2, W//2, O] in x.dtype. On the card C and O must be multiples of
-    8. Calls the operator ``vqa_tpu_torch::conv3x3_f`` (``ops.library``).
+    [B, H//2, W//2, O] in x.dtype, or [B, H, W, O] without ``pool``. On the
+    card C and O must be multiples of 8. Calls the operator
+    ``vqa_tpu_torch::conv3x3_f`` (``ops.library``).
     """
-    return torch.ops.vqa_tpu_torch.conv3x3_f(x, w, b)
+    return torch.ops.vqa_tpu_torch.conv3x3_f(x, w, b, pool)
 
 
 # Kernel D's output channels a block owns (its wgmma N; csrc/conv3x3_f.cu BN)
@@ -189,22 +195,23 @@ def conv3x3_f_operands(x, w, b):
             b.to(x.device, torch.float32).contiguous())
 
 
-def launch_conv3x3_f(x, wp, b32):
+def launch_conv3x3_f(x, wp, b32, pool: bool = True):
     """Launch kernel D on operands already in its layout: ``x`` contiguous
     NHWC on the card, ``wp``/``b32`` from :func:`conv3x3_f_operands`."""
     bsz, h, wd, c = x.shape
     o = b32.shape[0]
-    out = torch.empty((bsz, h // 2, wd // 2, o), dtype=x.dtype, device=x.device)
+    ho, wo = (h // 2, wd // 2) if pool else (h, wd)
+    out = torch.empty((bsz, ho, wo, o), dtype=x.dtype, device=x.device)
     CONV3X3_F.launch(x.data_ptr(), wp.data_ptr(), b32.data_ptr(), out.data_ptr(),
-                     bsz, h, wd, c, o, _MODES[x.dtype])
+                     bsz, h, wd, c, o, _MODES[x.dtype], int(pool))
     return out
 
 
-def conv3x3_f_bound(x, w, plain):
+def conv3x3_f_bound(x, w, plain, pool: bool = True):
     """Kernel D's tolerance, per element of its output:
     ``ulp(|plain|) + c * S``, S = sum_taps |x * w| (the plain sums on |x| and
-    |w|, the largest of the four pool phases, as the max takes one), ulp of
-    x.dtype and ``c = 2 (E_kernel + E_plain) 2^-23`` for K = 9 C:
+    |w|; pooled, the largest of the four pool phases, as the max takes one),
+    ulp of x.dtype and ``c = 2 (E_kernel + E_plain) 2^-23`` for K = 9 C:
 
     - the plain version: 9 matmuls of C products in f32 and 8 adds, in any
       order, each add rounded to nearest (within 2^-24 of a partial sum no
@@ -228,7 +235,7 @@ def conv3x3_f_bound(x, w, plain):
     """
     c_in = x.shape[-1]
     wa = w.to(x.device, x.dtype).abs().float()
-    sum_abs = _pooled_conv_sums(x.abs().float(), wa)
+    sum_abs = _conv_sums(x.abs().float(), wa, pool)
     e_plain = (c_in + 9) / 2
     if x.dtype == torch.bfloat16:
         e_kernel = 17 * 9 * -(-c_in // 16)
@@ -250,12 +257,7 @@ def conv_bn_relu_pool(x, w, b, *, int8: bool = False, s_x=None, s_next=None):
     assert s_next is None or int8, "s_next is an int8-chain handoff"
     if not int8:
         return conv3x3_f(x, w, b)
-    x_q, s_c, s_out = activation_quant(x, s_x)
-    w32 = w.float()
-    if s_c is not None:
-        w32 = w32 * s_c[None, None, :, None]
-    w_q, s_w = weight_quant(w32)
-    scale = s_w if s_out is None else s_out * s_w
+    x_q, w_q, scale = int8_operands(x, w, s_x)
     return int8_conv3x3(x_q, w_q, scale, b.float(), pool=True,
                         s_next=None if s_next is None else const(s_next, x.device),
                         out_dtype=x.dtype)

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from .._build import CONV0_F, CONV0_S2D_I8
-from .quant import activation_quant, epilogue, int_conv3x3, weight_quant
+from .quant import epilogue, int8_operands, int_conv3x3
 
 _MODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -264,10 +264,5 @@ def conv0_bn_relu_pool(x, w, b, *, int8: bool = False, s_x=None):
     """
     if not int8:
         return conv0_f(x, w, b)
-    x_q, s_c, s_out = activation_quant(x, s_x)
-    w32 = w.float()
-    if s_c is not None:
-        w32 = w32 * s_c[None, None, :, None]
-    w_q, s_w = weight_quant(w32)
-    scale = s_w if s_out is None else s_out * s_w
+    x_q, w_q, scale = int8_operands(x, w, s_x)
     return conv0_i8(x_q, w_q, scale, b.float(), out_dtype=x.dtype)

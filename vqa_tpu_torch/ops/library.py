@@ -1,15 +1,17 @@
-"""The port's five CUDA kernels as registered PyTorch operators.
+"""The port's six CUDA kernels as registered PyTorch operators.
 
 Each public kernel wrapper (``conv_stage1.conv0_i8``, ``conv_hpack.
 int8_conv3x3``, ``conv_stage1.conv0_f``, ``conv_hpack.conv3x3_f``,
-``coattention_kernel.coattention_fwd``) calls one operator of the namespace
-``vqa_tpu_torch``, defined here when ``vqa_tpu_torch.ops`` is imported (no
-CUDA work at import):
+``coattention_kernel.coattention_fwd``, ``mma_rate.mma_rate``) calls one
+operator of the namespace ``vqa_tpu_torch``, defined here when
+``vqa_tpu_torch.ops`` is imported (no CUDA work at import):
 
 - ``vqa_tpu_torch::conv0_i8`` (kernel A), ``vqa_tpu_torch::int8_conv3x3``
   (kernel B), ``vqa_tpu_torch::conv0_f`` (kernel C),
   ``vqa_tpu_torch::conv3x3_f`` (kernel D), ``vqa_tpu_torch::coattention_fwd``
-  (kernel E), with the wrappers' arguments in their order (:data:`SCHEMAS`).
+  (kernel E), ``vqa_tpu_torch::mma_rate`` (kernel F, the timing probe of the
+  tensor cores), with the wrappers' arguments in their order
+  (:data:`SCHEMAS`).
 
 Each operator has three implementations, chosen by the dispatcher from the
 device of its tensors:
@@ -32,13 +34,13 @@ Python layers of its own around the dispatcher: on an H100's host a
 direct call of the CUDA implementation (PERF.md, section 6). The operators have no backward (no autograd kernel is
 registered): kernels A-C run only on the frozen VGG stages, under
 ``no_grad`` (``VGGFeatures.train_forward`` launches none), D has no
-training caller, and E's gradient is ``coattention_kernel.coattention_fused``'s
+training caller, F computes no model function, and E's gradient is ``coattention_kernel.coattention_fused``'s
 ``autograd.Function``, which recomputes through plain PyTorch.
 """
 
 import torch
 
-from . import coattention_kernel, conv_hpack, conv_stage1
+from . import coattention_kernel, conv_hpack, conv_stage1, mma_rate
 
 NAMESPACE = "vqa_tpu_torch"
 
@@ -133,11 +135,11 @@ def _conv0_f_fake(x, w, b):
 
 # -- kernel D ----------------------------------------------------------------
 
-def _conv3x3_f_cpu(x, w, b):
-    return conv_hpack.conv3x3_f_plain(x, w, b)
+def _conv3x3_f_cpu(x, w, b, pool=True):
+    return conv_hpack.conv3x3_f_plain(x, w, b, pool)
 
 
-def _conv3x3_f_cuda(x, w, b):
+def _conv3x3_f_cuda(x, w, b, pool=True):
     _need_cuda("conv3x3_f", x)
     bsz, h, wd, c = x.shape
     o = w.shape[-1]
@@ -151,12 +153,13 @@ def _conv3x3_f_cuda(x, w, b):
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()            # the launcher refuses an image that is not 16-byte aligned
-    return conv_hpack.launch_conv3x3_f(x, *conv_hpack.conv3x3_f_operands(x, w, b))
+    return conv_hpack.launch_conv3x3_f(x, *conv_hpack.conv3x3_f_operands(x, w, b), pool=pool)
 
 
-def _conv3x3_f_fake(x, w, b):
+def _conv3x3_f_fake(x, w, b, pool=True):
     bsz, h, wd, _ = x.shape
-    return x.new_empty((bsz, h // 2, wd // 2, w.shape[-1]))
+    ho, wo = (h // 2, wd // 2) if pool else (h, wd)
+    return x.new_empty((bsz, ho, wo, w.shape[-1]))
 
 
 # -- kernel E ----------------------------------------------------------------
@@ -192,26 +195,55 @@ def _coattention_fwd_fake(x_img, q, W_v, b_v, W_q, b_q, w_v, w_q):
             x_img.new_empty((b, coattention_kernel.NUM_LEVELS, d)))
 
 
+# -- kernel F ----------------------------------------------------------------
+
+def _mma_rate_cpu(x, w):
+    return mma_rate.mma_rate_plain(x, w)
+
+
+def _mma_rate_cuda(x, w):
+    _need_cuda("mma_rate", x)
+    if (x.dim() != 4 or w.dim() != 3 or x.dtype not in mma_rate._MODES or w.dtype != x.dtype
+            or w.shape[1] != x.shape[3] or w.shape[2] != mma_rate.N):
+        raise ValueError(f"mma_rate: need x [G,R,W,K] and w [ndots,K,{mma_rate.N}] of one type, "
+                         f"int8 or bfloat16, got x{tuple(x.shape)} {x.dtype} "
+                         f"w{tuple(w.shape)} {w.dtype}")
+    k_bytes = x.shape[3] * x.element_size()
+    if k_bytes % 128 or (x.shape[1] * x.shape[2]) % mma_rate.UNIT_ROWS:
+        raise ValueError(f"mma_rate: the CUDA kernel needs K of a multiple of 128 bytes and "
+                         f"R W a multiple of {mma_rate.UNIT_ROWS}, got x{tuple(x.shape)}")
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()            # the launcher refuses operands that are not 16-byte aligned
+    return mma_rate.launch_mma_rate(x, mma_rate.pack_mma_rate_weights(w.to(x.device)),
+                                    w.shape[0])
+
+
+def _mma_rate_fake(x, w):
+    return x.new_empty((x.shape[0], x.shape[2], w.shape[2]), dtype=mma_rate._MODES[x.dtype][0])
+
+
 SCHEMAS = {
     "conv0_i8": "conv0_i8(Tensor x_q, Tensor w_q, Tensor scale, Tensor bias, "
                 "ScalarType out_dtype, Tensor? s1) -> Tensor",
     "int8_conv3x3": "int8_conv3x3(Tensor x_q, Tensor w_q, Tensor scale, Tensor bias, "
                     "bool pool, Tensor? s_next, ScalarType out_dtype) -> Tensor",
     "conv0_f": "conv0_f(Tensor x, Tensor w, Tensor b) -> Tensor",
-    "conv3x3_f": "conv3x3_f(Tensor x, Tensor w, Tensor b) -> Tensor",
+    "conv3x3_f": "conv3x3_f(Tensor x, Tensor w, Tensor b, bool pool=True) -> Tensor",
     "coattention_fwd": "coattention_fwd(Tensor x_img, Tensor q, Tensor W_v, Tensor b_v, "
                        "Tensor W_q, Tensor b_q, Tensor w_v, Tensor w_q) -> (Tensor, Tensor)",
+    "mma_rate": "mma_rate(Tensor x, Tensor w) -> Tensor",
 }
 # the CUDA implementations, also for timing a launch without the operator's dispatch
 CUDA_IMPLS = {"conv0_i8": _conv0_i8_cuda, "int8_conv3x3": _int8_conv3x3_cuda,
               "conv0_f": _conv0_f_cuda, "conv3x3_f": _conv3x3_f_cuda,
-              "coattention_fwd": _coattention_fwd_cuda}
+              "coattention_fwd": _coattention_fwd_cuda, "mma_rate": _mma_rate_cuda}
 _CPU_IMPLS = {"conv0_i8": _conv0_i8_cpu, "int8_conv3x3": _int8_conv3x3_cpu,
               "conv0_f": _conv0_f_cpu, "conv3x3_f": _conv3x3_f_cpu,
-              "coattention_fwd": _coattention_fwd_cpu}
+              "coattention_fwd": _coattention_fwd_cpu, "mma_rate": _mma_rate_cpu}
 _FAKES = {"conv0_i8": _conv0_i8_fake, "int8_conv3x3": _int8_conv3x3_fake,
           "conv0_f": _conv0_f_fake, "conv3x3_f": _conv3x3_f_fake,
-          "coattention_fwd": _coattention_fwd_fake}
+          "coattention_fwd": _coattention_fwd_fake, "mma_rate": _mma_rate_fake}
 
 _LIBRARY = torch.library.Library(NAMESPACE, "DEF")
 for _name, _schema in SCHEMAS.items():

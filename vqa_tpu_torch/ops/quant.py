@@ -77,6 +77,21 @@ def weight_quant(w32: torch.Tensor):
     return quantize(w32, s_w), s_w
 
 
+def int8_operands(x: torch.Tensor, w: torch.Tensor, s_x):
+    """An int8 conv stage's operands as the JAX package quantizes them: x
+    through :func:`activation_quant`, the f32 HWIO weights folded with the
+    per-channel scales (if any) and quantized per output channel, and the
+    epilogue's scale (``s_out * s_w``, or ``s_w`` with per-channel ``s_x``).
+
+    Returns ``(x_q, w_q, scale)``."""
+    x_q, s_c, s_out = activation_quant(x, s_x)
+    w32 = w.float()
+    if s_c is not None:
+        w32 = w32 * s_c[None, None, :, None]
+    w_q, s_w = weight_quant(w32)
+    return x_q, w_q, s_w if s_out is None else s_out * s_w
+
+
 def fold_scale(scale: torch.Tensor, var: torch.Tensor) -> torch.Tensor:
     """BatchNorm running-stats fold factor ``scale / sqrt(var + 1e-5)``.
 
