@@ -168,6 +168,27 @@ without CUDA it exits non-zero before printing any result):
    without a mesh, the peak device memory of each rank and the phase's
    seconds are printed beside the card.
 
+13. tools phase (``tools_phase``, after the cache phase; ``vqa_tpu_torch.tools.
+   TOOLS``, the port of the JAX repo's run tools), each step with its
+   seconds: (a) BASELINE.md round 2's dataset from the port's generator
+   (redblue, K = 2, 10,000 train and 2,000 val pairs of 224² JPEGs, seed 0)
+   and ``run_accuracy`` on it: the baseline, b32, one epoch, Adam 1e-4, the
+   generated random-init ``.pth``, frozen VGG, on the f32 float route
+   (``--opt_lvl 0``: kernel C once a train step and eval batch), the int8
+   route (``--opt_lvl 1``: 8 calibration batches, then A once and B 7 times
+   a forward) and ``--opt_lvl 0 --bn_mode batch`` (C in the eval batches
+   only): each at least ACC_MIN % validation accuracy, its launches exact,
+   its loss, QA/s and seconds printed; (b) the dress rehearsal (prepare_data,
+   JPEGs, train, test with VQA-format output, ``loadRes``, serve; attention
+   at 448², b8, in fresh processes on the card); (c) the serving latency at
+   b1, b8 and b32 (a forward: A once, B 7 times); (d) ``mem_report``'s four
+   b160 configurations (one real step each, after a warm-up: peak allocated
+   and reserved memory, the b32 point and the batch headroom; A once and B
+   7 times a forward, C once on the float route); (e) ``profile_headline``
+   (attention int8 b160 448² train step, 3 traced steps: the op groups, A's
+   and B's device ms a step, the idle share); (f) ``profile_vgg`` (the 8
+   stages at b160 on both routes, bit-equal to the model's forward).
+
 Per-path launch counts go on a line of their own. The line before the last
 is a JSON object of per-kernel launches (kernels A and B: the attention
 model's serving path; kernel C: its float-route training run; kernels D and
@@ -1538,6 +1559,152 @@ def cache_phase(etl: dict, native: bool, card: str, device="cuda") -> dict:
     return path_launches
 
 
+# the tools phase: BASELINE.md round 2's dataset (the K = 2 redblue task,
+# 10,000 train and 2,000 val pairs at 224², seed 0) and the least validation
+# accuracy a route must reach on it in one epoch (chance is 50%)
+ACC_N_TRAIN, ACC_N_VAL, ACC_SIZE, ACC_MIN = 10000, 2000, 224, 95.0
+# the accuracy routes: (name, run_accuracy flags)
+ACC_ROUTES = (("float f32 (kernel C)", ("--opt_lvl", "0")),
+              ("int8 (kernels A, B)", ("--opt_lvl", "1")),
+              ("float f32, --bn_mode batch", ("--opt_lvl", "0", "--bn_mode", "batch")))
+DRESS_MODEL, DRESS_IMAGE, DRESS_BATCH = "attention", 448, 8
+LATENCY_BATCHES, PROFILE_HEADLINE_STEPS = ("1", "8", "32"), 3
+
+
+def tools_phase(card: str, device="cuda") -> dict:
+    """The port's run tools (``vqa_tpu_torch.tools``, :data:`TOOLS`) on the
+    card, each step timed: (a) BASELINE.md round 2's dataset from the port's
+    generator and the baseline trained on it for one epoch on three routes
+    (``run_accuracy``), each at least ACC_MIN % with its kernels' launches
+    exact; (b) the dress rehearsal (attention at 448²); (c) the serving
+    latency at b1, b8 and b32; (d) the four b160 configurations' peak memory
+    (``mem_report``, which checks A once and B 7 times a forward); (e) the
+    headline step's trace (``profile_headline``); (f) the VGG stages at b160
+    (``profile_vgg``). Returns {path: launches}, each read just after its run."""
+    import shutil
+    from unittest import mock
+
+    import torch
+    from vqa_tpu_torch import _build
+    from vqa_tpu_torch.tools import (dress_rehearsal, latency_report, make_synth_dataset,
+                                     mem_report, profile_headline, profile_vgg, run_accuracy)
+
+    work = os.path.join(WORK, "tools")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    path_launches = {}
+    seconds = {}
+
+    def timed_step(name, fn):
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"tools step {name}: {seconds[name]:.2f} s ({card})", flush=True)
+        return out
+
+    # (a) the round-2 dataset, then one epoch of the baseline on three routes
+    data = os.path.join(work, "redblue")
+    synth = timed_step("a: make_synth_dataset", lambda: make_synth_dataset.main(
+        ["--out_dir", data, "--task", "redblue", "--n_train", str(ACC_N_TRAIN), "--n_val",
+         str(ACC_N_VAL), "--size", str(ACC_SIZE), "--seed", "0"]))
+    if (synth["n_train"], synth["n_val"]) != (ACC_N_TRAIN, ACC_N_VAL):
+        raise AssertionError(f"the generator wrote {synth['n_train']} / {synth['n_val']} pairs")
+    for route, flags in ACC_ROUTES:
+        args = run_accuracy.build_parser().parse_args(
+            ["--data_dir", data, "--model", "baseline", "--num_cls", "2", "--epochs", "1",
+             "--batch_size", str(BATCH), "--lr", "1e-4", "--num_workers", str(DECODE_THREADS),
+             "--expt_dir", os.path.join(work, "acc"), "--device", device, *flags])
+        _build.reset_counts()
+        rec = timed_step(f"a: run_accuracy {route}", lambda: run_accuracy.run(args))
+        launches, plain = counts()
+        summary = rec.pop("summary")
+        path_launches[f"accuracy {route}"] = launches
+        print(f"launches path=accuracy_{re.sub(r'[^a-z0-9]+', '_', route).strip('_')}: "
+              f"{json.dumps(launches)}", flush=True)
+        print(f"accuracy baseline {route}: val accuracy {rec['val_accuracy']} %, val loss "
+              f"{rec['val_loss']}, {rec['train_qa_per_s']:.2f} QA/s (the epoch's train loop, "
+              f"validation taken out), {rec['seconds']:.2f} s, decode {rec['decode_backend']}, "
+              f"{summary['steps']} steps, {summary['eval_batches']} eval batches ({card})",
+              flush=True)
+        print("accuracy json: " + json.dumps(rec), flush=True)
+        steps, evals = summary["steps"], summary["eval_batches"]
+        if "--bn_mode" in flags:        # train steps take batch statistics: no kernel
+            expect = {"conv0_f": evals}
+        elif flags[1] == "0":
+            expect = {"conv0_f": steps + evals}
+        else:                           # 8 calibration batches, then every forward
+            forwards = 8 + steps + evals
+            expect = {"conv0_s2d_i8": forwards, "conv3x3_i8": 7 * forwards}
+        got = {k: v for k, v in launches.items() if v}
+        if device == "cuda" and (got != expect or any(plain.values())):
+            raise AssertionError(f"accuracy {route}: launches {got}, expected {expect}; plain "
+                                 f"convs on the card {plain}")
+        if not (rec["val_accuracy"] or 0) >= ACC_MIN:
+            raise AssertionError(f"accuracy {route}: {rec['val_accuracy']} % < {ACC_MIN} %")
+        shutil.rmtree(summary["log_dir"])
+
+    # (b) the dress rehearsal through the CLIs
+    dress = timed_step("b: dress_rehearsal", lambda: dress_rehearsal.main(
+        ["--device", device, "--model", DRESS_MODEL, "--image_size", str(DRESS_IMAGE),
+         "--batch_size", str(DRESS_BATCH), "--work_dir", os.path.join(work, "dress")]))
+    print(f"dress rehearsal: {json.dumps(dress)} ({card})", flush=True)
+
+    # (c) serving latency
+    latency = timed_step("c: latency_report", lambda: latency_report.main(
+        [*LATENCY_BATCHES, "--device", device]))
+    for r in latency:
+        path_launches[f"latency b{r['batch']}"] = r["forward_launches"]
+        print(f"latency b{r['batch']}: device busy {r['device_ms']} ms "
+              f"({r['device_ms_per_sample']} a sample), forward {r['forward_ms']:.3f} ms "
+              f"(CUDA events, dispatch included), e2e {r['e2e_ms']:.3f} ms "
+              f"({r['e2e_ms_per_sample']:.3f} a sample), {r['route']} ({card})", flush=True)
+        if device == "cuda" and r["forward_launches"] != {"conv0_s2d_i8": 1, "conv3x3_i8": 7}:
+            raise AssertionError(f"latency b{r['batch']}: a forward launched "
+                                 f"{r['forward_launches']}, not A once and B 7 times")
+
+    # (d) device memory at b160
+    mem = timed_step("d: mem_report", lambda: mem_report.main(["--device", device]))
+    for r in mem:
+        path_launches[f"mem {r['config']}"] = r["launches"]
+        print(f"mem {r['config']} ({r['mode']}, b{r['batch']}): " + json.dumps(
+            {k: v for k, v in r.items() if k not in ("config", "mode", "batch", "card")})
+            + f" ({card})", flush=True)
+
+    # (e) the headline step's trace
+    with mock.patch.dict(os.environ, {
+            "PROFILE_STEPS": str(PROFILE_HEADLINE_STEPS), "BENCH_MODE": "train",
+            "PROFILE_OUT": os.path.join(work, "profile"),
+            "BENCH_BATCH": str(PROBE_BATCH if device == "cuda" else BATCH)}):
+        prof = timed_step("e: profile_headline", lambda: profile_headline.main(
+            ["--device", device]))
+    path_launches["profile_headline (a step)"] = prof["launches_per_step"]
+    groups = {r["group"]: r for r in prof["groups"]}
+    for r in prof["groups"][:6]:
+        print(f"profile_headline {r['group']}: {r['ms']:.3f} ms a step, {r['calls']:.1f} calls, "
+              f"{r['gflop']:.1f} GFLOP, {r['mb']:.1f} MB, {r['verdict']} ({card})", flush=True)
+    print(f"profile_headline: wall {prof['wall_ms_per_step']:.3f} ms a step "
+          f"({prof['profiled_ms_per_step']:.3f} ms under the profiler), device busy "
+          f"{prof['device_busy_ms_per_step']:.3f} ms, idle share "
+          f"{prof['device_idle_share']:.4f} ({card})", flush=True)
+    if device == "cuda":
+        a, b = (groups.get(k) for k in ("kernel A (conv0_s2d_i8)", "kernel B (conv3x3_i8)"))
+        if a is None or b is None or a["calls"] != 1 or b["calls"] != 7:
+            raise AssertionError("the headline trace lacks kernel A once or B 7 times a step")
+        print(f"profile_headline kernels: A {a['ms']:.4f} ms, B {b['ms']:.4f} ms a step "
+              f"({card})", flush=True)
+
+    # (f) the VGG's stages at b160
+    with mock.patch.dict(os.environ, {"BENCH_BATCH": str(PROBE_BATCH if device == "cuda" else 2),
+                                      "BENCH_STEPS": "10"}):
+        vgg = timed_step("f: profile_vgg", lambda: profile_vgg.main(["--device", device]))
+    print(f"profile_vgg: {json.dumps(vgg['summary'])}", flush=True)
+    shutil.rmtree(work)
+    print(f"tools phase: {sum(seconds.values()):.2f} s ({card})", flush=True)
+    return path_launches
+
+
 # the multi-device phase: its DP runs at world 1 must equal the run without a
 # mesh bit for bit, FSDP within FSDP_RTOL; the (1, 1)-mesh dry run's two legs
 # within DRYRUN_TOL (vqa_tpu's bound, __graft_entry__.py:192-193); two ranks'
@@ -1819,6 +1986,8 @@ def main() -> int:
     t0 = time.perf_counter()
     train_launches.update(cache_phase(etl, native, card))
     print(f"cache phase: {time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.empty_cache()
+    train_launches.update(tools_phase(card))
 
     def kernel_fields(image, k, mode):
         r = rows[image][(k.symbol, mode)]

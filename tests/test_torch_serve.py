@@ -201,7 +201,11 @@ def test_port_imports_no_jax():
             "vqa_tpu_torch.export, vqa_tpu_torch.ops.library, vqa_tpu_torch.utils, "
             "vqa_tpu_torch.utils.plotting, vqa_tpu_torch.parallel.distributed, "
             "vqa_tpu_torch.parallel.mesh, vqa_tpu_torch.parallel.sharding, "
-            "vqa_tpu_torch.multichip; "
+            "vqa_tpu_torch.multichip, vqa_tpu_torch.tools._run, "
+            "vqa_tpu_torch.tools.make_synth_dataset, vqa_tpu_torch.tools.run_accuracy, "
+            "vqa_tpu_torch.tools.dress_rehearsal, vqa_tpu_torch.tools.latency_report, "
+            "vqa_tpu_torch.tools.mem_report, vqa_tpu_torch.tools.export_vgg_pth, "
+            "vqa_tpu_torch.tools.profile_vgg, vqa_tpu_torch.tools.profile_headline; "
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vqa_tpu')]; "
             "assert not bad, bad")

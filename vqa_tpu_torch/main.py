@@ -436,8 +436,9 @@ def _run_in_group(args) -> dict:
 def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, device,
           image_size: int, host_size: int, mesh=None) -> dict:
     """The training loop of vqa_tpu/main.py:478-773. Returns a summary:
-    per-step losses, host-clock train seconds at each sync point (with
-    validation and checkpoint time taken out), eval batches run, the train
+    per-step losses, host-clock train seconds at each sync point and at the
+    loop's end (with validation and checkpoint time taken out), eval
+    batches run, the train
     loader's decode engine and the feature caches opened (train, val).
 
     On a mesh every rank runs this loop on its rows: the calibration on the
@@ -591,6 +592,7 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
     losses, sync_points = [], []
     eval_batches = 0
     excluded = 0.0          # host seconds in validation, logging and saves
+    train_seconds = None    # the whole loop's, once it ends
     t_loop = time.perf_counter()
 
     def validate(size):
@@ -680,6 +682,8 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
                               "Validation Loss: {:.4f}\n".format(epoch + 1, vm["accuracy"],
                                                                 vm["loss"]), log_file)
                 excluded += time.perf_counter() - t0
+        sync()
+        train_seconds = time.perf_counter() - t_loop - excluded
     except Exception:
         # a SIGTERM to the whole process group can break the loader before
         # the step-boundary poll: the guard's contract is still a checkpoint
@@ -700,7 +704,7 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
         writer.close()
         log_file.close()
     return {"losses": [float(v) for v in losses], "first_step": curr_step - len(losses),
-            "steps": len(losses), "sync_points": sync_points,
+            "steps": len(losses), "sync_points": sync_points, "train_seconds": train_seconds,
             "eval_batches": eval_batches, "preempted": preempted, "log_dir": log_dir,
             "decode_backend": train_loader.decode_backend,
             "feature_caches": [c for c in (train_cache, val_cache) if c is not None]}

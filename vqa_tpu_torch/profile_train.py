@@ -72,11 +72,10 @@ def _write_data(work: str, n: int) -> tuple[str, str]:
     return vocab_file, data
 
 
-def _busy_us(events) -> float:
-    """Length of the union of the device events' [start, end) intervals."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+def busy_us(spans) -> float:
+    """Length of the union of [start, end) intervals (device events')."""
     busy, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
+    for s, e in sorted(spans):
         if cur_e is None or s > cur_e:
             if cur_e is not None:
                 busy += cur_e - cur_s
@@ -210,7 +209,7 @@ def main(argv=None) -> dict:
     loader.close()
     dev_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     copies = [e for e in dev_events if e.name.startswith(("Memcpy", "Memset"))]
-    busy_ms = _busy_us(dev_events) / 1e3
+    busy_ms = busy_us((e.time_range.start, e.time_range.end) for e in dev_events) / 1e3
     avgs = prof.key_averages()
     key = "self_device_time_total" if hasattr(avgs[0], "self_device_time_total") \
         else "self_cuda_time_total"
