@@ -15,10 +15,11 @@ without CUDA it exits non-zero before printing any result):
    every function of kernels A and B must hold integer ones, every function
    of kernel C float ones (HMMA or HGMMA), every function of kernel D
    warpgroup MMAs (HGMMA), kernel E's GEMM bodies HGMMA and its phase-(ii)
-   body tensor-core ones (HMMA or HGMMA), kernel F's s8 body IGMMA and its
-   bf16 body HGMMA), and print each of D's, E's and F's functions'
-   registers, stack and local bytes (``cuobjdump -res-usage``): a stack
-   frame or local memory in a function of kernel D (a spill) fails;
+   body tensor-core ones (HMMA or HGMMA), kernel F's two s8 bodies (128-
+   and 64-byte K chunks) IGMMA and its two bf16 bodies HGMMA), and print
+   each of D's, E's and F's functions' registers, stack and local bytes
+   (``cuobjdump -res-usage``): a stack frame or local memory in a function
+   of kernel D or F (a spill) fails;
 3. kernel phase, at the attention model's 448² shapes and again at the
    baseline and bert models' 224² (conv0 224 -> 112, conv1 at 112, conv2-3
    at 56, conv4-5 at 28, conv6-7 at 14): each kernel mode of the serving and
@@ -66,12 +67,14 @@ without CUDA it exits non-zero before printing any result):
    wrapper's b160 output, its first and last 2 samples against the plain
    version on those samples (D and F every sample), F also on random small
    integers at its full grid; then timed with PROBE_STEPS calls (wrapper,
-   launch alone, yardstick, plain where it fits, bound), the counts zeroed
-   just before each variant's timed calls and read just after, and the
-   last timed wrapper call's and launch's outputs held as before; kernel
-   F's rate against the published peaks and against one GEMM of its
-   operations. Kernel F's and kernel D's unpooled rows of the JSON lines
-   come from here;
+   launch alone, yardstick over the whole batch (the int8 im2col GEMMs in
+   b32 slices, summed, where b160's operands pass 8 GB), plain where it
+   fits, bound), the counts zeroed just before each variant's timed calls
+   and read just after, and the last timed wrapper call's and launch's
+   outputs held as before; kernel F's rate against the published peaks,
+   against one GEMM of its operations and against the library's large
+   GEMMs (M = N = 8,192, K 4,096-16,384). Kernel F's and kernel D's
+   unpooled rows of the JSON lines come from here;
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
    requests with each model at full width and its own image size (attention
    448², baseline and bert 224²), batch 32, ``--opt_lvl 1`` (int8 stages
@@ -294,8 +297,8 @@ def dispatch_pair(op_fn, direct_fn, rounds=6):
 def sass_counts():
     """Tensor-core instructions in each kernel's SASS (``cuobjdump -sass``),
     by function: {source: {function: {opcode: count}}}; checks them, and
-    prints kernels D's and E's registers, stack and local bytes (a spill in
-    kernel D fails)."""
+    prints kernels D's, E's and F's registers, stack and local bytes (a
+    spill in kernel D or F fails)."""
     import shutil
     from vqa_tpu_torch import _build
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -324,14 +327,19 @@ def sass_counts():
             or not all(set(ops) & {"HMMA", "HGMMA"} for ops in c_funcs.values()):
         raise AssertionError("kernel B lacks integer tensor-core instructions, or a "
                              "function of kernel C float ones")
-    # kernel D: wgmma in both bodies; kernel E: wgmma in its GEMM (phase (i))
-    # bodies, tensor-core MMAs in its phase-(ii) body
+    # kernel D: wgmma in each of its 6 functions (pooled for bf16 and f32,
+    # unpooled for bf16 and f32 with 1 and 2 streams); kernel E: wgmma in its
+    # GEMM (phase (i)) bodies, tensor-core MMAs in its phase-(ii) body
     d_funcs = counts["conv3x3_f.cu"]
+    d_pooled = [fn for fn in d_funcs if "conv3x3_f_kernelI" in fn]
+    d_unpooled = [fn for fn in d_funcs if "conv3x3_f_kernel_unpooledI" in fn]
     e_funcs = counts["coattention_fwd.cu"]
     e_gemms = [ops for fn, ops in e_funcs.items() if "coatt_gemm_kernel" in fn]
     e_slices = [ops for fn, ops in e_funcs.items() if "coatt_slice_kernel" in fn]
-    if len(d_funcs) < 2 or not all("HGMMA" in ops for ops in d_funcs.values()):
-        raise AssertionError("a function of kernel D lacks warpgroup MMAs (HGMMA)")
+    if len(d_pooled) != 2 or len(d_unpooled) != 4 or len(d_funcs) != 6 \
+            or not all("HGMMA" in ops for ops in d_funcs.values()):
+        raise AssertionError("kernel D lacks one of its 2 pooled and 4 unpooled functions, or "
+                             f"one lacks warpgroup MMAs (HGMMA): {d_funcs}")
     if len(e_gemms) < 2 or not all("HGMMA" in ops for ops in e_gemms) or not e_slices \
             or not all(set(ops) & {"HMMA", "HGMMA"} for ops in e_slices):
         raise AssertionError("kernel E's GEMM bodies lack HGMMA, or its phase-(ii) body "
@@ -339,18 +347,23 @@ def sass_counts():
     a_funcs = counts["conv0_s2d_i8.cu"]
     if not a_funcs or not all(set(ops) & {"IMMA", "IGMMA"} for ops in a_funcs.values()):
         raise AssertionError("a function of kernel A lacks integer tensor-core instructions")
+    # kernel F: s8 and bf16 bodies, each with 128- and 64-byte K chunks
     f_funcs = counts["mma_rate.cu"]
-    if len(f_funcs) != 2 or not any("IGMMA" in ops for ops in f_funcs.values()) \
-            or not all("HGMMA" in ops or "IGMMA" in ops for ops in f_funcs.values()):
+    f_s8 = [ops for ops in f_funcs.values() if "IGMMA" in ops]
+    f_bf16 = [ops for ops in f_funcs.values() if "IGMMA" not in ops]
+    if len(f_funcs) != 4 or len(f_s8) != 2 or len(f_bf16) != 2 \
+            or not all("HGMMA" in ops for ops in f_bf16):
         raise AssertionError("kernel F lacks its s8 (IGMMA) or bf16 (HGMMA) warpgroup MMAs")
-    for source in ("conv3x3_f.cu", "coattention_fwd.cu", "mma_rate.cu"):
+    for source, name in (("conv3x3_f.cu", "D"), ("coattention_fwd.cu", "E"),
+                         ("mma_rate.cu", "F")):
         usage = resource_usage(tool, _build._lib_path(source))
         for fn, res in usage.items():
             print(f"resources {source} {fn}: registers {res['REG']}, stack {res['STACK']} B, "
                   f"local {res['LOCAL']} B", flush=True)
-        if source == "conv3x3_f.cu" and (len(usage) < 2 or any(
+        if name in "DF" and (set(usage) != set(counts[source]) or any(
                 res["STACK"] or res["LOCAL"] for res in usage.values())):
-            raise AssertionError(f"kernel D spills (stack or local bytes): {usage}")
+            raise AssertionError(f"kernel {name} spills (stack or local bytes), or its "
+                                 f"resource report misses a function: {usage}")
     return counts
 
 
@@ -821,11 +834,12 @@ def probes_phase(dev, card: str):
         for r in got:
             launches[r["kernel"]] = launches.get(r["kernel"], 0) + r["launches"]
             plain = "not timed" if r["plain_ms"] is None else f"{r['plain_ms']:.4f} ms"
-            at = "" if r["library_batch"] is None else f" at b{r['library_batch']}"
+            at = "" if r["library_slice_ms"] is None else \
+                f" (its first b{r['library_slice_batch']} slice {r['library_slice_ms']:.4f} ms)"
             print(f"probe {r['row']} {name} {r['variant']} ({r['kernel']}, {r['mode']}; "
                   f"{r['shape']}): wrapper {r['ms']:.4f} ms, launch {r['launch_ms']:.4f} ms "
                   f"({100 * r['share_of_bound']:.1f}% of its bound {r['bound_ms']:.4f} ms, "
-                  f"{r['bound_by']}), {r['library']}{at} {r['library_ms']:.4f} ms, plain "
+                  f"{r['bound_by']}), {r['library']} {r['library_ms']:.4f} ms{at}, plain "
                   f"{plain}; max_abs_err {r['max_abs_err']} ({card})", flush=True)
         rows += got
         torch.cuda.empty_cache()

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 
 from vqa_tpu_torch import _build
 from vqa_tpu_torch.ops import coattention_kernel, conv_hpack, conv_stage1, quant
+from vqa_tpu_torch.tools import exp_r5_mosaic_dot
 
 TORCH_DT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -467,6 +468,252 @@ def test_kernel_d_descriptors_reproduce_conv_sums(dtype):
         assert float(np.abs(want).max()) > 0
 
 
+# kernel D's unpooled epilogue (csrc/conv3x3_f.cu, POOL = false): each warp
+# stages 64 bytes of channels of its 2 x 16 pixels, a pixel a row, under the
+# 64-byte swizzle, and stores that box by TMA
+
+
+def _tma_swizzle(addr, mode):
+    """The address TMA (and wgmma) use for logical shared-memory byte
+    ``addr`` of a tile aligned to its swizzle atom: the 128-byte swizzle
+    XORs the 16-byte unit (bits 4-6) with bits 7-9, the 64-byte one bits
+    4-5 with bits 7-8."""
+    mask = 7 if mode == 128 else 3
+    return addr ^ (((addr >> 7) & mask) << 4)
+
+
+def _sw64_offset(row, b):
+    """Where TMA's 64-byte swizzle puts byte ``b`` of row ``row`` of a tile
+    of 64-byte rows (512-byte aligned): the 16-byte unit b / 16 at (b / 16)
+    ^ ((row >> 1) & 3)."""
+    return row * 64 + ((((b >> 4) ^ (row >> 1)) & 3) << 4) + (b & 15)
+
+
+def _kernel_d_unpooled_store(acc, bias, dtype, streams, n0, cout, tile, out):
+    """Kernel D's unpooled epilogue for one stream's tile, as the kernel
+    runs it: ``acc`` [threads][2][64] f32 sums (thread t of the stream =
+    warpgroup wg, warp w, lane (g, q); acc[mt][4j + 2hf + e] is pixel (2w +
+    hf, col0 + 8mt + g) of the tile, channel n0 + 8j + 2q + e). Per warp
+    and piece of UCH channels: the fragments (+ bias, ReLU, one rounding) at
+    the kernel's addresses (row 16 hf + 8 mt + g, byte cb ^ keyb), then
+    TMA's store of the box (UCH channels x 16 x 2 from (channel, x, y, b))
+    into ``out`` [B, H, W, C_out], clipped at its edges (``tile`` = (x, y,
+    b) of the tile's first pixel). Returns each warp store's lane offsets
+    (for the bank check)."""
+    dt = TORCH_DT[dtype]
+    es = torch.empty((), dtype=dt).element_size()
+    uch, tw = 64 // es, 32 // streams
+    stores = []
+    for wg in range(2 if streams == 1 else 1):
+        for w in range(4):
+            x0, y0 = tile[0] + 16 * (wg if streams == 1 else 0), tile[1] + 2 * w
+            for ck in range(128 // uch):
+                if n0 + ck * uch >= cout:
+                    break
+                piece = np.zeros(32 * 64, np.uint8)
+                written = np.zeros(32 * 64, np.int64)
+                for jj in range(uch // 8):
+                    j = ck * (uch // 8) + jj
+                    if n0 + 8 * j >= cout:
+                        break
+                    for mt in range(2):
+                        for hf in range(2):
+                            lanes = []
+                            for g in range(8):
+                                for q in range(4):
+                                    t = 128 * wg + 32 * w + 4 * g + q
+                                    # the kernel's address: the lane's bytes, XOR the unit
+                                    lane_bytes = g * 64 + ((2 * q * es) & 15) \
+                                        + (((g >> 1) & 3) << 4)
+                                    cb = (8 * jj + 2 * q) * es
+                                    off = (lane_bytes ^ ((cb >> 4) << 4)) + (16 * hf + 8 * mt) * 64
+                                    assert off == _sw64_offset(16 * hf + 8 * mt + g, cb)
+                                    v = [acc[t, mt, 4 * j + 2 * hf + e]
+                                         + bias[n0 + 8 * j + 2 * q + e] for e in range(2)]
+                                    raw = torch.tensor([max(a, 0.0) for a in v]).to(dt) \
+                                        .view(torch.uint8).numpy()
+                                    piece[off:off + raw.size] = raw
+                                    written[off:off + raw.size] += 1
+                                    lanes.append(off)
+                            stores.append(lanes)
+                assert written.max() <= 1                  # no two fragments on one byte
+                # TMA reads logical byte (row, c) of the box at its swizzled address
+                logical = piece[_tma_swizzle(np.arange(piece.size), 64)]
+                box = torch.from_numpy(logical.copy()).view(dt).reshape(2, 16, uch)
+                c0 = n0 + ck * uch
+                hh = max(0, min(2, out.shape[1] - y0))
+                ww = max(0, min(16, out.shape[2] - x0))
+                cc = min(uch, cout - c0)
+                out[tile[2], y0:y0 + hh, x0:x0 + ww, c0:c0 + cc] = box[:hh, :ww, :cc]
+    return stores
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kernel_d_unpooled_staging_matches_nhwc_tile(dtype):
+    """A model of kernel D's unpooled epilogue: every (pixel, channel)
+    fragment of a warp lands on its own bytes of its staging piece under
+    the 64-byte swizzle, and read back in TMA's box
+    order (un-swizzled), clipped at the image's and C_out's edges, the
+    warps' boxes give the NHWC tile of relu(sums + bias) in x.dtype. Two
+    streams' tiles of 16 columns and one stream's of 32, an interior tile
+    and a tile past W 41 / H 11 with C_out 200 (the second slice: 72
+    channels, the last box mid-piece). In bf16 a warp's fragment stores (4
+    bytes a lane) fall on 32 distinct banks."""
+    rng = np.random.default_rng(21)
+    dt = TORCH_DT[dtype]
+    cout = 200
+    bias = rng.standard_normal(256).astype(np.float32)
+    for streams in (2, 1):
+        tw = 32 // streams
+        for ty, tx, n0 in ((0, 0, 0), (1, 41 // tw, 128)):
+            acc = rng.standard_normal((256, 2, 64)).astype(np.float32)
+            out = torch.full((1, 11, 41, cout), -1.0).to(dt)
+            stores = _kernel_d_unpooled_store(acc, bias, dtype, streams, n0, cout,
+                                              (tw * tx, 8 * ty, 0), out)
+            # the same tile from the thread layout directly
+            want = torch.full_like(out, -1.0)
+            for t in range(256 if streams == 1 else 128):
+                wg, w, lane = t // 128, (t // 32) % 4, t % 32
+                g, q = lane // 4, lane % 4
+                for mt in range(2):
+                    for j in range(16):
+                        for hf in range(2):
+                            for e in range(2):
+                                y = 8 * ty + 2 * w + hf
+                                x = tw * tx + 16 * wg + 8 * mt + g
+                                c = n0 + 8 * j + 2 * q + e
+                                if y < 11 and x < 41 and c < cout:
+                                    v = acc[t, mt, 4 * j + 2 * hf + e] + bias[c]
+                                    want[0, y, x, c] = torch.tensor(max(v, 0.0)).to(dt)
+            assert torch.equal(out, want)
+            assert bool((out != -1).any())
+            if dtype == "bfloat16":
+                for lanes in stores:
+                    assert len({(off // 4) % 32 for off in lanes}) == 32
+
+
+# kernel F (csrc/mma_rate.cu): K split across a cluster of CLUSTER blocks
+
+
+def _kernel_f_as_cluster(x, w):
+    """Kernel F's schedule on the CPU: x [G, R, W, K], w [ndots, K, 128]
+    (int8 or bfloat16) -> [G, W, 128] as the cluster computes it. Per unit
+    of 128 rows of a step, rank r reads its K share: chunks of CB bytes
+    (``mma_rate.k_chunk``) as TMA boxes of x [128 rows, CB] and of the
+    packed w^T [128 n, CB] at K coordinate r share_k + c CB / es, stored
+    with the CB-byte swizzle; each warpgroup's wgmmas read 64 rows x 32
+    bytes from descriptor start a0 + 32 j (a0 = the stage + 64 wg rows);
+    the products are exact integers, summed in float64 (the kernel's s32 /
+    f32 sums stay exact). The partial sums travel through the receive
+    slots [CL - 1][8 warps][VALS][32 lanes] of the rank that finalizes
+    their columns (acc[s VALS + v] of lane (g, q) of warp (wg, w) is row
+    64 wg + 16 w + g + 8 h, column 8 j + 2 q + e, s VALS + v = 4 j + 2 h +
+    e), each (row, column) once, and are added in rank order."""
+    from vqa_tpu_torch.ops import mma_rate
+
+    g_, r_, wd, k = x.shape
+    nd = w.shape[0]
+    es = x.element_size()
+    cl = mma_rate.CLUSTER[x.dtype]
+    cb = mma_rate.k_chunk(k * es, cl)
+    assert cb in (64, 128)
+    share_k, kv = k // cl, cb // es
+    nk = share_k // kv
+    vals = 64 // cl
+    wt = mma_rate.pack_mma_rate_weights(w)
+    m = r_ * wd
+    xf = x.reshape(g_ * m, k)
+
+    def smem(tile):                                  # a TMA box, as shared-memory bytes
+        raw = tile.contiguous().view(torch.uint8).numpy().reshape(-1)
+        out = np.zeros_like(raw)
+        out[_tma_swizzle(np.arange(raw.size), cb)] = raw
+        return out
+
+    def operand(buf, start, rows):                   # a wgmma's 32 bytes of K of `rows` rows
+        addr = start + np.arange(rows)[:, None] * cb + np.arange(32)[None]
+        raw = np.ascontiguousarray(buf[_tma_swizzle(addr, cb)])
+        return torch.from_numpy(raw).view(x.dtype).double()
+
+    # the receive slots' layout: every (row, column) of rank s's columns once
+    lane = np.arange(32)
+    for s in range(cl):
+        seen = set()
+        for warp in range(8):
+            for v in range(vals):
+                idx = s * vals + v
+                j, h, e = idx // 4, (idx % 4) // 2, idx % 2
+                rows = 64 * (warp // 4) + 16 * (warp % 4) + lane // 4 + 8 * h
+                cols = 8 * j + 2 * (lane % 4) + e
+                assert all(128 * s // cl <= c < 128 * (s + 1) // cl for c in cols)
+                seen.update(zip(rows.tolist(), cols.tolist()))
+        assert len(seen) == 128 * 128 // cl
+    assert (cl - 1) * 8 * vals * 128 == {2: 32768, 4: 49152}[cl]
+
+    out = torch.zeros((g_, wd, 128), dtype=torch.float64)
+    for u in range(g_ * (m // 128)):
+        step, grp = divmod(u, m // 128)
+        rows0 = step * m + grp * 128
+        partials = []
+        for rank in range(cl):
+            acc = torch.zeros((128, 128), dtype=torch.float64)
+            for c in range(nk):
+                k0 = rank * share_k + c * kv
+                xs = smem(xf[rows0:rows0 + 128, k0:k0 + kv])
+                for i in range(nd):
+                    ws = smem(wt[128 * i:128 * (i + 1), k0:k0 + kv])
+                    for wg in range(2):
+                        for jstep in range(cb // 32):
+                            a = operand(xs, wg * 64 * cb + 32 * jstep, 64)
+                            b = operand(ws, 32 * jstep, 128)
+                            acc[64 * wg:64 * wg + 64] += a @ b.T
+            partials.append(acc)
+        total = torch.zeros((128, 128), dtype=torch.float64)
+        for p in partials:                           # in rank order
+            total += p
+        keep = max(0, min(128, wd - grp * 128))      # rows r < W of the step
+        out[step, grp * 128:grp * 128 + keep] = total[:keep]
+    return out
+
+
+@pytest.mark.parametrize("label", ["int8", "bfloat16"])
+@pytest.mark.parametrize("k,ndots", [*exp_r5_mosaic_dot.DEPTHS, (384, 2)])
+def test_kernel_f_split_k_schedule_equals_plain(label, k, ndots):
+    """A model of kernel F's cluster schedule (``_kernel_f_as_cluster``:
+    each rank's K share of x and of the packed weights through TMA's
+    swizzle and the wgmma descriptors' addresses, the receive slots' layout,
+    the partial sums added in rank order) equals ``mma_rate_plain`` bit for
+    bit on random integers, s8 and bf16, at the probe's K of 128 (a share
+    of 64 bytes: the 64-byte swizzle), 256 and 512 (128-byte chunks), and
+    at K 384 (shares of 192 bytes: three 64-byte chunks), each K with the
+    probe's dot count; two steps of R 2 x W 192 (three units a step: the
+    second stored in part, the third not)."""
+    from vqa_tpu_torch.ops import mma_rate
+
+    dt = torch.int8 if label == "int8" else torch.bfloat16
+    rng = np.random.default_rng(22 + k)
+    x = torch.from_numpy(rng.integers(-8, 9, (2, 2, 192, k))).to(dt)
+    w = torch.from_numpy(rng.integers(-8, 9, (ndots, k, 128))).to(dt)
+    got = _kernel_f_as_cluster(x, w)
+    ref = mma_rate.mma_rate_plain(x, w)
+    assert torch.equal(got, ref.double())
+    assert got.abs().max() > 0
+
+
+def test_kernel_f_k_chunks():
+    """The cluster's K shares: 128-byte chunks where a share is a multiple
+    of 128 bytes, else 64-byte ones; 0 (the wrapper raises) where K does
+    not split into CLUSTER shares of a multiple of 64 bytes."""
+    from vqa_tpu_torch.ops import mma_rate
+
+    s8, bf16 = mma_rate.CLUSTER[torch.int8], mma_rate.CLUSTER[torch.bfloat16]
+    assert (s8, bf16) == (2, 4)
+    assert [mma_rate.k_chunk(k, s8) for k in (128, 256, 384, 512, 64, 192)] == \
+        [64, 128, 64, 128, 0, 0]
+    assert [mma_rate.k_chunk(2 * k, bf16) for k in (128, 256, 384, 512, 64, 192)] == \
+        [64, 128, 64, 128, 0, 0]
+
+
 def _add_rz(a, b):
     """a + b in f32, rounded toward zero (from the exact sum in float64)."""
     s = a.double() + b.double()
@@ -752,9 +999,10 @@ def test_kernel_c_matches_plain_on_card(cuda, mode, shape):
 @pytest.mark.cuda
 def test_kernels_repeat_bit_for_bit_on_card(cuda):
     """Two launches of each kernel on the same inputs give the same bits
-    (no atomics, no split sums): resumed training stays exact. Kernel D at a
-    shape whose persistent blocks walk several tiles, kernel E with 8
-    slices of D a sample and level."""
+    (no atomics; kernel F's split sums added in a fixed order): resumed
+    training stays exact. Kernel D pooled and unpooled at a shape whose
+    persistent blocks walk several tiles, kernel E with 8 slices of D a
+    sample and level, kernel F with 1,120 units over its clusters."""
     g = torch.Generator().manual_seed(3)
     x0 = torch.randint(-127, 128, (2, 36, 70, 3), generator=g, dtype=torch.int8).to(cuda)
     w0 = torch.randint(-127, 128, (3, 3, 3, 64), generator=g, dtype=torch.int8).to(cuda)
@@ -773,13 +1021,21 @@ def test_kernels_repeat_bit_for_bit_on_card(cuda):
     v, q, params = _kernel_e_inputs((2, 49, 7, 512), g, cuda)
     calls += [lambda: conv_hpack.conv3x3_f(x3.bfloat16(), w3, s256[:128]),
               lambda: conv_hpack.conv3x3_f(x3, w3, s256[:128]),
+              lambda: conv_hpack.conv3x3_f(x3.bfloat16(), w3, s256[:128], pool=False),
+              lambda: conv_hpack.conv3x3_f(x3, w3, s256[:128], pool=False),
               lambda: torch.cat(coattention_kernel.coattention_fwd(v.bfloat16(), q.bfloat16(),
                                                                    *params)),
               lambda: torch.cat(coattention_kernel.coattention_fwd(v, q, *params))]
+    # kernel F: its clusters walk several units and add their partial sums
+    from vqa_tpu_torch.ops import mma_rate
+    xf8 = torch.randint(-8, 9, (40, 16, 224, 256), generator=g, dtype=torch.int8).to(cuda)
+    wf8 = torch.randint(-8, 9, (6, 256, 128), generator=g, dtype=torch.int8).to(cuda)
+    calls += [lambda: mma_rate.mma_rate(xf8, wf8),
+              lambda: mma_rate.mma_rate(xf8.bfloat16(), wf8.bfloat16())]
     _build.reset_counts()
     for call in calls:
         assert torch.equal(call(), call())
-    assert [k.launches for k in _build.KERNELS] == [2, 2, 4, 4, 4, 0]
+    assert [k.launches for k in _build.KERNELS] == [2, 2, 4, 8, 4, 4]
 
 
 # (shape (B, H, W), C_in, C_out): odd H and W (pooled 9 x 18, partial 4 x
@@ -791,11 +1047,14 @@ def test_kernels_repeat_bit_for_bit_on_card(cuda):
 # resident in bf16; VGG conv7 at 448² (C = C_out = 512 at 28², 4 slices, 32
 # chunks of bf16 and 64 of f32); 4 images at pooled 50 x 65: 260 tiles of
 # 4 x 16 pooled pixels (f32) or 520 of 4 x 8 (bf16, two streams), over 132
-# persistent blocks on an H100, a count that is no multiple of them
+# persistent blocks on an H100, a count that is no multiple of them; W 41,
+# H 11 and C_out 72: unpooled, the last tile's TMA store boxes end mid-box
+# in W (41 = 2 x 16 + 9 in bf16, 32 + 9 in f32), in H (8 + 3) and in C_out
+# (the third 32- or 16-channel piece holds 8 channels)
 KERNEL_D_CASES = {"odd": ((2, 19, 37), 64, 128), "channels_96_200": ((2, 12, 20), 96, 200),
                   "channels_8": ((1, 6, 10), 8, 8), "conv1_224": ((2, 112, 112), 64, 128),
                   "conv1_448": ((1, 224, 224), 64, 128), "conv7_28": ((2, 28, 28), 512, 512),
-                  "tiles_260": ((4, 100, 130), 64, 128)}
+                  "tiles_260": ((4, 100, 130), 64, 128), "ragged_41": ((2, 11, 41), 64, 72)}
 
 
 @pytest.mark.cuda
@@ -820,14 +1079,15 @@ def test_kernel_d_matches_plain_on_card(cuda, mode, case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["odd", "channels_96_200", "channels_8", "conv1_224",
-                                  "conv1_448"])
+@pytest.mark.parametrize("case", list(KERNEL_D_CASES))
 @pytest.mark.parametrize("mode", ["float32", "bfloat16"])
 def test_kernel_d_unpooled_matches_plain_on_card(cuda, mode, case):
     """Kernel D's unpooled mode (``conv3x3_f(..., pool=False)``, every conv
-    pixel stored) within ``conv3x3_f_bound(pool=False)`` of
+    pixel stored by TMA) within ``conv3x3_f_bound(pool=False)`` of
     ``conv3x3_f_plain(pool=False)``, at the pooled test's shapes (odd H and
-    W: the last partial tile's rows and columns are stored too)."""
+    W: the last partial tile's rows and columns are stored too; boxes that
+    end past H, W and C_out are clipped by TMA, and nothing past them is
+    written: the output is allocated filled with NaN first)."""
     shape, c, o = KERNEL_D_CASES[case]
     g = torch.Generator().manual_seed(16)
     x = torch.relu(torch.randn((*shape, c), generator=g)).to(cuda, TORCH_DT[mode])
@@ -836,6 +1096,16 @@ def test_kernel_d_unpooled_matches_plain_on_card(cuda, mode, case):
     _build.reset_counts()
     out = conv_hpack.conv3x3_f(x, w, b, pool=False)
     assert _build.CONV3X3_F.launches == 1 and out.dtype == TORCH_DT[mode]
+    # the same launch into a NaN-filled buffer with a margin after the
+    # output: the clipped boxes write nothing past it, and every element of
+    # the output is written
+    wp, b32 = conv_hpack.conv3x3_f_operands(x, w, b)
+    buf = torch.full((out.numel() + 64 * 1024,), float("nan"), dtype=x.dtype, device=cuda)
+    _build.CONV3X3_F.launch(x.data_ptr(), wp.data_ptr(), b32.data_ptr(), buf.data_ptr(),
+                            *shape, c, o, conv_hpack._MODES[x.dtype], 0)
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:out.numel()].view_as(out), out)
+    assert bool(buf[out.numel():].isnan().all())
     ref = conv_hpack.conv3x3_f_plain(x, w, b, pool=False)
     assert _build.CONV3X3_F.plain_on_cuda == 1 and tuple(out.shape) == (*shape, o)
     diff = (out.float() - ref.float()).abs()
@@ -843,12 +1113,17 @@ def test_kernel_d_unpooled_matches_plain_on_card(cuda, mode, case):
 
 
 # (G, R, W, K, ndots): the TPU probe's three contraction depths (M = R W =
-# 3,584, the output rows W = 224) at a few steps, and small shapes: one unit
-# a step (M 128, all rows stored), and W 100 (M 3,200: rows 100-127 of the
-# first unit computed but not stored, a warp's rows split by the edge)
+# 3,584, the output rows W = 224) at a few steps (K 128: a K share of 64
+# bytes in both types, the 64-byte swizzle), and small shapes: one unit a
+# step (M 128, all rows stored), W 100 (M 3,200: rows 100-127 of the first
+# unit computed but not stored, a warp's rows split by the edge), K 384
+# (shares of 192 bytes: three 64-byte chunks), and 67 units, a count that
+# is no multiple of the clusters an H100 holds (at most 66 of 2 blocks, 33
+# of 4), so some clusters take one unit more
 KERNEL_F_CASES = {"k128": (3, 16, 224, 128, 12), "k256": (3, 16, 224, 256, 6),
                   "k512": (3, 16, 224, 512, 3), "one_unit": (5, 1, 128, 128, 1),
-                  "w100": (2, 32, 100, 256, 2)}
+                  "w100": (2, 32, 100, 256, 2), "k384": (2, 16, 224, 384, 4),
+                  "units_67": (67, 1, 128, 256, 6)}
 
 
 @pytest.mark.cuda
@@ -876,6 +1151,24 @@ def test_kernel_f_equals_plain_on_card(cuda, mode, case, values):
     ref = mma_rate.mma_rate_plain(x, w)
     assert out.dtype == ref.dtype and tuple(out.shape) == (g_, wd, 128)
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,k", [("int8", 64), ("int8", 192), ("bfloat16", 64),
+                                    ("bfloat16", 192)])
+def test_kernel_f_rejects_k_the_cluster_cannot_split_on_card(cuda, mode, k):
+    """K must split into CLUSTER shares of a multiple of 64 bytes (s8 2, bf16
+    4 blocks a cluster: K a multiple of 128 values): anything else raises,
+    with no fallback and no launch."""
+    from vqa_tpu_torch.ops import mma_rate
+
+    dt = torch.int8 if mode == "int8" else torch.bfloat16
+    x = torch.full((1, 1, 128, k), 2, dtype=dt, device=cuda)
+    w = torch.full((1, k, 128), 2, dtype=dt, device=cuda)
+    _build.reset_counts()
+    with pytest.raises(ValueError, match="splits K across"):
+        mma_rate.mma_rate(x, w)
+    assert _build.MMA_RATE.launches == 0
 
 
 def _kernel_e_inputs(shape, g, device):
@@ -992,8 +1285,8 @@ def test_kernel_operators_pass_opcheck_on_card(cuda, name):
                             for v, q, params in [_kernel_e_inputs((2, 16, 5, 64), g, "cpu")]],
         "mma_rate": [(torch.randint(-8, 9, (2, 2, 64, 128), generator=g, dtype=torch.int8),
                       torch.randint(-8, 9, (3, 128, 128), generator=g, dtype=torch.int8)),
-                     (torch.randint(-8, 9, (2, 1, 128, 64), generator=g).bfloat16(),
-                      torch.randint(-8, 9, (2, 64, 128), generator=g).bfloat16())],
+                     (torch.randint(-8, 9, (2, 1, 128, 128), generator=g).bfloat16(),
+                      torch.randint(-8, 9, (2, 128, 128), generator=g).bfloat16())],
     }
     op = library.OPS[name]
     for args in cases[name]:

@@ -69,13 +69,40 @@
 //
 // Unpooled mode (POOL = false, a compile-time flag, so the pooled bodies
 // compile as they did): the same mainloop, and an epilogue that stores
-// every conv pixel, f32 sum + bias, ReLU and one rounding to x.dtype. The
-// tile's outputs (4 times the pooled bytes) are staged 64 bytes of channels
-// a pixel at a time (32 bf16 or 16 f32 channels; 10 KB a stream of 8 x 16
-// pixels), each chunk written with 16-byte coalesced stores, so the
-// staging stays small beside the resident weights. It is the float route
-// of the Pallas probe tools/exp_nhwc_tap.py:_kernel (int8=False), the
-// unpooled conv1 that probe times; no model path runs it.
+// every conv pixel, f32 sum + bias, ReLU and one rounding to x.dtype. It is
+// the float route of the Pallas probe tools/exp_nhwc_tap.py:_kernel
+// (int8=False), the unpooled conv1 that probe times; no model path runs it.
+// Its tile writes 4 times the pooled bytes (32 KB of bf16 a stream's tile
+// of 8 x 16 pixels): at b160 conv1 the launch reads 1.03 GB and writes 2.06
+// GB (0.92 ms at 3.35 TB/s) against 1.20 ms of bf16 tensor-core time, so
+// the stores must overlap the other stream's MMAs almost whole. Design:
+//   * the stores go out by TMA: a 4-D tensor map over the output [B, H, W,
+//     C_out] with boxes of 64 bytes of channels x 16 columns x 2 rows, the
+//     pixels one warp's fragments hold; each warp stages and stores its own
+//     boxes (lane 0 issues cp.async.bulk.tensor, one bulk group a box), so
+//     the epilogue needs no barrier across warps; the box's part past H, W
+//     or C_out is not written, so the ragged edge needs no mask;
+//   * a warp's staging is two pieces used in turn: 64 bytes of channels (32
+//     bf16 or 16 f32) of its 32 pixels, a pixel's 64 bytes a row, under the
+//     64-byte swizzle (a row's 16-byte unit u at u ^ ((row >> 1) & 3), as
+//     TMA reads it): the warp's fragment writes of 8 pixels x 16 bytes then
+//     fall on 32 distinct banks. Before a piece is written again, lane 0
+//     waits until the store of two pieces ago has read it
+//     (cp.async.bulk.wait_group.read 1), so one piece's store drains while
+//     the next is written, and the warp goes back to its mainloop without
+//     waiting for its last stores;
+//   * the unpooled kernels (conv3x3_f_kernel_unpooled, one a stream count)
+//     know the halo's width at compile time, so the tap offsets of their
+//     descriptors are immediates and not registers held across the
+//     mainloop: with them the epilogue's state fits in the consumers' 232
+//     registers without a spill (with the widths read from Params it
+//     spilled);
+//   * shared memory (bf16 VGG conv1, 2 streams, resident weights): 1,024
+//     bytes of alignment and 1,024 of barriers, 2 x 16,384 of staging (two
+//     2 KB pieces a warp), 147,456 of weights and 4 ring stages of 11,776
+//     bytes (two streams' halos): 229,376 of the 232,448 a block can have.
+//     In f32 the staging shares the split halos' region, so each warp waits
+//     for its stores' reads before the next tile's split.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,6 +123,8 @@ constexpr int MAX_STAGES = 8;                  // a stream's ring
 constexpr int BARRIER_BYTES = 512;
 
 constexpr int BN = 128;                        // output channels of a block (its slice)
+// unpooled: a staging piece, 64 bytes of channels of a warp's 2 x 16 pixels
+constexpr int UPIECE = 2 * 16 * 64;
 
 template <typename T> struct Traits;
 template <> struct Traits<__nv_bfloat16> {
@@ -109,8 +138,8 @@ template <typename T> struct Layout {
   static constexpr int TAP_BYTES = BN * 32;
   static constexpr int W_CHUNK = 9 * TAP_BYTES * Traits<T>::PARTS;    // one chunk's slice
   static constexpr int RS = BN * static_cast<int>(sizeof(T)) + 16;    // staging row stride
-  // unpooled: 64 bytes of channels a pixel a chunk, rows padded to 80 bytes
-  static constexpr int UCH = 64 / static_cast<int>(sizeof(T)), URS = 80;
+  // unpooled: channels of a staging piece, 64 bytes of a pixel
+  static constexpr int UCH = 64 / static_cast<int>(sizeof(T));
   static_assert(W_CHUNK % 128 == 0, "regions must stay 128-byte aligned");
 };
 
@@ -141,28 +170,48 @@ __device__ __forceinline__ void store2(unsigned char* p, float a, float b, float
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
-template <typename T, bool POOL>
-__global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
-    const __grid_constant__ CUtensorMap xmap,   // x [B, H, W, C] as (C, W, H, B)
+// The same, to a shared-memory address (32 bits: one register an address)
+__device__ __forceinline__ void store2_shared(uint32_t addr, float a, float b, __nv_bfloat16*) {
+  const __nv_bfloat162 v = __halves2bfloat162(__float2bfloat16_rn(a), __float2bfloat16_rn(b));
+  asm volatile("st.shared.b32 [%0], %1;\n" :: "r"(addr), "r"(*reinterpret_cast<const uint32_t*>(&v))
+               : "memory");
+}
+
+__device__ __forceinline__ void store2_shared(uint32_t addr, float a, float b, float*) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" :: "r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+// The kernel's body, inlined into the pooled and the unpooled kernels below.
+// S: the unpooled kernels' stream count (1 or 2), known at compile time, so
+// that the halo's width and the tap offsets of the descriptors are
+// constants; 0 (pooled): read from Params.
+template <typename T, bool POOL, int S>
+__device__ __forceinline__ void conv3x3_f_body(
+    const CUtensorMap* xmap,                    // x [B, H, W, C] as (C, W, H, B)
     const unsigned char* __restrict__ wp,       // pack_conv3x3_f_weights
     const float* __restrict__ bias,             // [Cout]
-    T* __restrict__ out,                        // [B, H/2, W/2, Cout], unpooled [B, H, W, Cout]
-    const Params p) {
+    T* __restrict__ out,                        // pooled: [B, H/2, W/2, Cout]
+    const Params p,
+    const CUtensorMap* ymap) {                  // unpooled: out [B, H, W, Cout] as (Cout, W, H, B)
   using L = Layout<T>;
   constexpr int CK = Traits<T>::CK;
   constexpr bool F32 = Traits<T>::PARTS == 2;
   constexpr int ACC = BN / 2;                   // f32 sums a thread and M tile (m64nBN)
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
-  const uint32_t base = (raw + 127) & ~127u;
+  // unpooled: the staging pieces are swizzled, 1,024-byte aligned
+  const uint32_t base = POOL ? (raw + 127) & ~127u : (raw + 1023) & ~1023u;
   unsigned char* const gbase = smem_raw + (base - raw);
   const uint32_t full0 = base, empty0 = base + 16 * MAX_STAGES;
   const uint32_t wbar = base + 32 * MAX_STAGES, order0 = wbar + 8;
-  const uint32_t s_regions = base + BARRIER_BYTES;
-  const uint32_t s_w = s_regions + p.streams * p.region;
+  const uint32_t s_regions = base + (POOL ? BARRIER_BYTES : 1024);
+  const int streams = S ? S : p.streams;
+  const int halo_w = S ? TW / S + 2 : p.halo_w;
+  const int half_bytes = S ? round128(HALO_H * (TW / S + 2) * 16) : p.half_bytes;
+  const uint32_t s_w = s_regions + streams * p.region;
   const uint32_t s_ring = s_w + (p.resident ? p.nch * L::W_CHUNK : 0);
-  const int halo_bytes = 2 * p.half_bytes;
-  const int tw = TW / p.streams, pw = PW / p.streams;   // a stream's tile
+  const int halo_bytes = 2 * half_bytes;
+  const int tw = TW / streams, pw = PW / streams;   // a stream's tile
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int slices = (p.Cout + BN - 1) / BN;
   const int slice = blockIdx.x % slices, first = blockIdx.x / slices;
@@ -170,7 +219,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
   if (t == 0) {
     for (int s = 0; s < 2 * MAX_STAGES; ++s) {
       sm90::mbar_init(full0 + 8 * s, 1);
-      sm90::mbar_init(empty0 + 8 * s, CONSUMERS / 32 / p.streams);
+      sm90::mbar_init(empty0 + 8 * s, CONSUMERS / 32 / streams);
     }
     sm90::mbar_init(wbar, 1);
     sm90::mbar_init(order0, 4);                 // the 4 warps of a warpgroup
@@ -194,7 +243,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
       int k0 = 0, k1 = 0;                      // the streams' chunk counts
       int i = 0;
       for (int u = first; u < p.units; u += step, ++i) {
-        const int sn = p.streams == 2 ? (i & 1) : 0;
+        const int sn = streams == 2 ? (i & 1) : 0;
         const int b = u / p.tiles_img, r = u % p.tiles_img;
         const int iy = (r / p.tiles_w) * TH - 1, ix = (r % p.tiles_w) * tw - 1;
         for (int ch = 0; ch < p.nch; ++ch) {
@@ -202,9 +251,9 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
           const uint32_t fb = full0 + 8 * (sn * MAX_STAGES + s);
           sm90::mbar_wait(empty0 + 8 * (sn * MAX_STAGES + s), ((k / p.stages) & 1) ^ 1);
           const uint32_t st = s_ring + (sn * p.stages + s) * p.stage_bytes;
-          sm90::mbar_expect_tx(fb, 2 * HALO_H * p.halo_w * 16 + (p.resident ? 0 : L::W_CHUNK));
-          sm90::tma_load_4d(st, &xmap, ch * CK, ix, iy, b, fb);
-          sm90::tma_load_4d(st + p.half_bytes, &xmap, ch * CK + CK / 2, ix, iy, b, fb);
+          sm90::mbar_expect_tx(fb, 2 * HALO_H * halo_w * 16 + (p.resident ? 0 : L::W_CHUNK));
+          sm90::tma_load_4d(st, xmap, ch * CK, ix, iy, b, fb);
+          sm90::tma_load_4d(st + half_bytes, xmap, ch * CK + CK / 2, ix, iy, b, fb);
           if (!p.resident)
             sm90::bulk_load(st + halo_bytes, wsl + static_cast<size_t>(ch) * L::W_CHUNK,
                             L::W_CHUNK, fb);
@@ -218,9 +267,9 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
   // whose tiles are the block's tiles sn, sn + streams, ...
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(CONSUMER_REGS));
   const int wg = warp >> 2, w = warp & 3, g = lane >> 2, q = lane & 3;
-  const int sn = p.streams == 2 ? wg : 0;
-  const int col0 = p.streams == 2 ? 0 : 16 * wg;        // the warpgroup's first column
-  const int nts = CONSUMERS / p.streams, ts = t - sn * nts;   // the stream's threads
+  const int sn = streams == 2 ? wg : 0;
+  const int col0 = streams == 2 ? 0 : 16 * wg;        // the warpgroup's first column
+  const int nts = CONSUMERS / streams, ts = t - sn * nts;   // the stream's threads
   const int bar_id = 1 + sn;
   const int n0 = slice * BN;
   // the stage holds only the raw halo (f32 with resident weights): the split
@@ -232,8 +281,9 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
   if (p.resident && nb > 0) sm90::mbar_wait(wbar, 0);
   float acc[2][ACC];                           // M tiles: columns col0 + 8 mt ..
   int k = 0;
+  int ep = 0;                                  // unpooled: pieces the stream has stored
 #pragma unroll 1
-  for (int i = sn; i < nb; i += p.streams) {
+  for (int i = sn; i < nb; i += streams) {
     const int u = first + i * step;
 #pragma unroll
     for (int j = 0; j < ACC; ++j) acc[0][j] = acc[1][j] = 0.f;
@@ -241,7 +291,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
     sm90::pin<ACC>(acc[1]);
     // ping-pong: tile i's mainloop starts when tile i - 1's (the other
     // warpgroup's) has issued its last wgmmas
-    if (p.streams == 2 && i > 0) sm90::mbar_wait(order0 + 8 * ((i - 1) & 1), ((i - 1) >> 1) & 1);
+    if (streams == 2 && i > 0) sm90::mbar_wait(order0 + 8 * ((i - 1) & 1), ((i - 1) >> 1) & 1);
 #pragma unroll 1
     for (int ch = 0; ch < p.nch; ++ch, ++k) {
       const int s = k % p.stages;
@@ -270,13 +320,13 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
         }
         sm90::named_barrier(bar_id, nts);
       }
-      const uint64_t da = sm90::desc(xs + col0 * 16, p.half_bytes, p.halo_w * 16);
+      const uint64_t da = sm90::desc(xs + col0 * 16, half_bytes, halo_w * 16);
       const uint64_t db = sm90::desc(ws, 128, 256);
       sm90::wgmma_fence();
 #pragma unroll
       for (int tap = 0; tap < 9; ++tap) {      // descriptors count 16-byte units
         const uint64_t bw = db + tap * (L::TAP_BYTES >> 4);
-        const int toff = (tap / 3) * p.halo_w + tap % 3;
+        const int toff = (tap / 3) * halo_w + tap % 3;
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt) {
           const uint64_t a = da + (toff + 8 * mt);
@@ -290,7 +340,7 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
         }
       }
       sm90::wgmma_commit();
-      if (p.streams == 2 && ch == p.nch - 1 && i + 1 < nb) {
+      if (streams == 2 && ch == p.nch - 1 && i + 1 < nb) {
         __syncwarp();                          // the next tile's mainloop may start
         if (lane == 0) sm90::mbar_arrive(order0 + 8 * (i & 1));
       }
@@ -312,42 +362,58 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
 
     if constexpr (!POOL) {
       // acc[mt][4j + 2hf + e]: conv pixel (row 2w + hf, column col0 + 8 mt +
-      // g) of the tile, channel n0 + 8j + 2q + e; per chunk of UCH channels
-      // the stream stages its tile's pixels (the staging and, in f32, every
-      // split of this tile are free: wait<0> above and the barrier)
+      // g) of the tile, channel n0 + 8j + 2q + e. Each warp stores its own
+      // 2 rows x 16 columns: per piece of UCH channels, its lane 0 waits
+      // until the warp's store of two pieces ago has read that piece, the
+      // warp writes its fragments there (row 16 hf + 8 mt + g of 64 bytes,
+      // under the 64-byte swizzle), and lane 0 stores the piece's box by
+      // TMA. In f32 the staging shares the split halos' region: a barrier
+      // first, so that every wgmma of the tile has read them.
+      if constexpr (F32) sm90::named_barrier(bar_id, nts);
       const int b = u / p.tiles_img, r = u % p.tiles_img;
-      const int oy0 = (r / p.tiles_w) * TH, ox0 = (r % p.tiles_w) * tw;
-      constexpr int JC = L::UCH / 8;             // j steps a chunk
+      const int y0 = (r / p.tiles_w) * TH + 2 * w, x0 = (r % p.tiles_w) * tw + col0;
+      const bool inside = y0 < p.Ho && x0 < p.Wo;   // warp-uniform: else all clipped
+      constexpr int JC = L::UCH / 8;             // j steps a piece
+      // under the 64-byte swizzle, byte cb of row r of a piece (512-byte
+      // aligned) lies at 64 r + 16 ((cb / 16) ^ ((r >> 1) & 3)) + cb % 16. For
+      // the lane's byte cb = (8 jj + 2 q) sizeof(T) of row 16 hf + 8 mt + g
+      // that is (16 hf + 8 mt) 64 + ((64 g + cb % 16 + 16 key) ^ (16 (cb /
+      // 16))), key = (g >> 1) & 3: one 32-bit shared address a piece, which
+      // changes with ep, so that no address of the epilogue is computed
+      // ahead and held across the mainloop
+      const uint32_t lane_bytes = g * 64 + ((2 * q * sizeof(T)) & 15) + (((g >> 1) & 3) << 4);
+      const uint32_t block = s_region + (warp - 4 * sn) * 2 * UPIECE;   // the warp's two pieces
 #pragma unroll
-      for (int ck = 0; ck < BN / L::UCH; ++ck) {
+      for (int ck = 0; ck < BN / L::UCH; ++ck, ++ep) {
         if (n0 + ck * L::UCH >= p.Cout) break;   // block-uniform
-        sm90::named_barrier(bar_id, nts);
+        const uint32_t piece = block + (ep & 1) * UPIECE;
+        const uint32_t at = piece + lane_bytes;
+        if (lane == 0) sm90::bulk_wait_read<1>();
+        __syncwarp();
 #pragma unroll
         for (int jj = 0; jj < JC; ++jj) {
           const int j = ck * JC + jj;
           if (n0 + 8 * j >= p.Cout) break;     // warp-uniform: Cout % 8 == 0
           const float b0 = __ldg(bias + n0 + 8 * j + 2 * q), b1 = __ldg(bias + n0 + 8 * j + 2 * q + 1);
+          const uint32_t unit = ((8 * jj + 2 * q) * sizeof(T)) >> 4;   // the 16-byte unit of cb
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
             for (int hf = 0; hf < 2; ++hf) {
               const float v0 = __fadd_rn(acc[mt][4 * j + 2 * hf], b0);
               const float v1 = __fadd_rn(acc[mt][4 * j + 2 * hf + 1], b1);
-              store2(staging + ((2 * w + hf) * tw + col0 + 8 * mt + g) * L::URS +
-                         (8 * jj + 2 * q) * sizeof(T),
-                     v0 > 0.f ? v0 : 0.f, v1 > 0.f ? v1 : 0.f, static_cast<T*>(nullptr));
+              store2_shared((at ^ (unit << 4)) + (16 * hf + 8 * mt) * 64,
+                            v0 > 0.f ? v0 : 0.f, v1 > 0.f ? v1 : 0.f, static_cast<T*>(nullptr));
             }
         }
-        sm90::named_barrier(bar_id, nts);
-        constexpr int PER16 = 16 / static_cast<int>(sizeof(T));       // channels a piece
-        for (int i = ts; i < TH * tw * 4; i += nts) {
-          const int pix = i >> 2, kk = i & 3;
-          const int oy = oy0 + pix / tw, ox = ox0 + pix % tw, o = n0 + ck * L::UCH + kk * PER16;
-          if (oy >= p.Ho || ox >= p.Wo || o >= p.Cout) continue;
-          *reinterpret_cast<int4*>(out + ((static_cast<size_t>(b) * p.Ho + oy) * p.Wo + ox) * p.Cout + o) =
-              *reinterpret_cast<const int4*>(staging + pix * L::URS + kk * 16);
+        sm90::fence_async_shared();
+        __syncwarp();
+        if (lane == 0) {
+          if (inside) sm90::tma_store_4d(ymap, piece, n0 + ck * L::UCH, x0, y0, b);
+          sm90::bulk_commit();
         }
       }
+      if (F32 && lane == 0) sm90::bulk_wait_read<0>();   // the next split overwrites the staging
       continue;
     }
 
@@ -390,12 +456,29 @@ __global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
           *reinterpret_cast<const int4*>(staging + pix * L::RS + kk * 16);
     }
   }
+  if constexpr (!POOL) {
+    if (lane == 0) sm90::bulk_wait_all();       // the staging outlives the stores
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel(
+    const __grid_constant__ CUtensorMap xmap, const unsigned char* __restrict__ wp,
+    const float* __restrict__ bias, T* __restrict__ out, const Params p) {
+  conv3x3_f_body<T, true, 0>(&xmap, wp, bias, out, p, nullptr);
+}
+
+template <typename T, int S>
+__global__ void __launch_bounds__(THREADS, 1) conv3x3_f_kernel_unpooled(
+    const __grid_constant__ CUtensorMap xmap, const unsigned char* __restrict__ wp,
+    const float* __restrict__ bias, const Params p, const __grid_constant__ CUtensorMap ymap) {
+  conv3x3_f_body<T, false, S>(&xmap, wp, bias, nullptr, p, &ymap);
 }
 
 // The shared memory of a schedule: 2 streams with resident weights where
 // they fit, else 1 stream, resident or streaming the weights. Returns the
-// bytes, 0 if the schedule does not fit in `optin`. Unpooled, the epilogue
-// stages 64 bytes of channels of each of the stream's tile's pixels.
+// bytes, 0 if the schedule does not fit in `optin`. Unpooled, each warp of
+// a stream stages two swizzled 2 KB pieces (UPIECE), 1,024-byte aligned.
 template <typename T>
 int plan(Params& p, int streams, int resident, int optin, bool pool) {
   using L = Layout<T>;
@@ -405,12 +488,13 @@ int plan(Params& p, int streams, int resident, int optin, bool pool) {
   p.halo_w = tw + 2;
   p.half_bytes = round128(HALO_H * p.halo_w * 16);
   const int halo_bytes = 2 * p.half_bytes;
-  const int staging = pool ? PH * (PW / streams) * L::RS : TH * (TW / streams) * L::URS;
+  const int staging = pool ? PH * (PW / streams) * L::RS : (8 / streams) * 2 * UPIECE;
   const int split = Traits<T>::PARTS == 2 ? 2 * 2 * halo_bytes : 0;
-  p.region = round128(staging > split ? staging : split);
+  const int region = staging > split ? staging : split;
+  p.region = pool ? round128(region) : (region + 1023) / 1024 * 1024;
   p.stage_bytes = halo_bytes + (resident ? 0 : L::W_CHUNK);
-  const int fixed = 128 + BARRIER_BYTES + streams * p.region +
-                    (resident ? p.nch * L::W_CHUNK : 0);
+  const int head = pool ? 128 + BARRIER_BYTES : 1024 + 1024;   // alignment + barriers
+  const int fixed = head + streams * p.region + (resident ? p.nch * L::W_CHUNK : 0);
   const int per = (optin - fixed) / (streams * p.stage_bytes);
   if (optin <= fixed || per < 2) return 0;
   p.stages = per < MAX_STAGES ? per : MAX_STAGES;
@@ -439,7 +523,9 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
   p.tiles_w = (Wo + ow - 1) / ow;
   p.tiles_img = ((Ho + oh - 1) / oh) * p.tiles_w;
   p.units = B * p.tiles_img;
-  e = sm90::allow_smem<conv3x3_f_kernel<T, POOL>>(smem);
+  e = POOL ? sm90::allow_smem<conv3x3_f_kernel<T>>(smem)
+      : p.streams == 2 ? sm90::allow_smem<conv3x3_f_kernel_unpooled<T, 2>>(smem)
+                       : sm90::allow_smem<conv3x3_f_kernel_unpooled<T, 1>>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
 
   CUtensorMap xmap;
@@ -454,15 +540,35 @@ int launch(const void* x, const void* w, const void* bias, void* out, int B, int
                                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
                               4, x, dims, strides, box);
   if (e != cudaSuccess) return static_cast<int>(e);
+  // unpooled: the output as (C_out, W, H, B), boxes of a warp's staging piece
+  CUtensorMap ymap = {};
+  if (!POOL) {
+    const cuuint64_t ydims[4] = {static_cast<cuuint64_t>(Cout), static_cast<cuuint64_t>(Wo),
+                                 static_cast<cuuint64_t>(Ho), static_cast<cuuint64_t>(B)};
+    const cuuint64_t ystrides[3] = {Cout * es, static_cast<cuuint64_t>(Wo) * Cout * es,
+                                    static_cast<cuuint64_t>(Ho) * Wo * Cout * es};
+    const cuuint32_t ybox[4] = {static_cast<cuuint32_t>(Layout<T>::UCH), 16, 2, 1};
+    e = sm90::encode_tensor_map(&ymap, sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                      : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                                4, out, ydims, ystrides, ybox, CU_TENSOR_MAP_SWIZZLE_64B);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
 
   // persistent blocks, one an SM, a whole number of them per slice
   const int slices = (Cout + BN - 1) / BN;
   int per_slice = sms / slices;
   if (per_slice < 1) per_slice = 1;
   if (per_slice > p.units) per_slice = p.units;
-  conv3x3_f_kernel<T, POOL><<<per_slice * slices, THREADS, smem, st>>>(
-      xmap, static_cast<const unsigned char*>(w), static_cast<const float*>(bias),
-      static_cast<T*>(out), p);
+  if (POOL)
+    conv3x3_f_kernel<T><<<per_slice * slices, THREADS, smem, st>>>(
+        xmap, static_cast<const unsigned char*>(w), static_cast<const float*>(bias),
+        static_cast<T*>(out), p);
+  else if (p.streams == 2)
+    conv3x3_f_kernel_unpooled<T, 2><<<per_slice * slices, THREADS, smem, st>>>(
+        xmap, static_cast<const unsigned char*>(w), static_cast<const float*>(bias), p, ymap);
+  else
+    conv3x3_f_kernel_unpooled<T, 1><<<per_slice * slices, THREADS, smem, st>>>(
+        xmap, static_cast<const unsigned char*>(w), static_cast<const float*>(bias), p, ymap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -474,13 +580,14 @@ extern "C" const char* vqa_cuda_error_string(int code) {
 
 // mode: 0 = f32 x and out; 1 = bf16. w: ops/conv_hpack.pack_conv3x3_f_weights
 // (bf16, or f32 TF32 hi/lo), bias [Cout] f32. x and w 16-byte aligned, C and
-// Cout multiples of 8. pool: 1 = 2x2 maxpool, 0 = every pixel stored.
+// Cout multiples of 8, out 16-byte aligned. pool: 1 = 2x2 maxpool, 0 = every
+// pixel stored.
 // Returns cudaGetLastError() after the launch (0 = success).
 extern "C" int conv3x3_f(const void* x, const void* w, const void* bias, void* out,
                          int B, int H, int W, int C, int Cout, int mode, int pool,
                          void* stream) {
   if (C % 8 != 0 || Cout % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(w) % 16 != 0)
+      reinterpret_cast<uintptr_t>(w) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (2 * mode + (pool ? 1 : 0)) {

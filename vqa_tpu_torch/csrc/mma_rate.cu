@@ -14,29 +14,46 @@
 //
 // What bounds it on the H100: operations, by design (the probe's M = 3,584,
 // N = 128 and K ndots = 1,536 give 0.50 ms of int8 and 1.00 ms of bf16
-// tensor-core time a pass against 0.10-0.77 ms of bytes). Design:
-//   * warpgroup MMAs from shared-memory descriptors, both operands K-major
-//     with the 128-byte swizzle: s8 wgmma.m64n128k32, bf16 wgmma.m64n64k16;
-//   * the weights stay resident in shared memory for the whole launch,
-//     loaded once per block by TMA (a box of 128 bytes of K x the block's N
-//     rows per (dot, 128-byte K chunk)). At N 128 the s8 weights take
-//     ndots K 128 = 196,608 bytes for every (K, ndots) of the probe, and
-//     bf16 twice that, which does not fit in the 227 KB a block can have:
-//     a bf16 block owns N 64 (a slice; two slices, each block with one),
-//     and the two slices' blocks read the same x (the second read mostly
-//     from L2, since blocks 2j and 2j + 1 walk the same units);
-//   * persistent blocks (one an SM), each walking units of 128 rows of one
-//     step (two M tiles of 64, one a consumer warpgroup). A producer warp
-//     (one thread issues) streams the unit's x by TMA, one 16 KB box of 128
-//     rows x 128 bytes of K a stage, through a ring of 2-4 stages, running
-//     ahead across units; the consumers only wait, issue MMAs and release:
-//     per stage ndots x 4 wgmmas a warpgroup, all into one accumulator;
-//   * epilogue: each thread stores its own sums of rows < W straight from
-//     registers (the other rows are discarded, as on the TPU).
-// No split-K, no atomics: the sums of integers are exact, and bf16 sums of
-// integers below 2^24 are exact in any order.
-// K must be a multiple of 128 bytes (s8: 128 values, bf16: 64), M = R W a
-// multiple of 128, N = 128, and the weights must fit beside two stages.
+// tensor-core time a pass), with x streaming close to the memory's rate at
+// K 512 (1.28 GB of s8 a pass: 2.6 TB/s at the int8 peak). The weights,
+// ndots K N values (196,608 bytes of s8, twice that of bf16), would fill a
+// block's shared memory and leave no room for a ring deep enough to cover
+// TMA's latency at that rate. Design: split K across a thread-block cluster.
+//   * A cluster of CL blocks (s8: 2, bf16: 4) takes each unit of 128 rows of
+//     one step together; block (rank) r owns the r-th K share of every dot:
+//     it keeps that share's weights resident for the launch, at N 128 in
+//     both types (98,304 bytes a block at every (K, ndots) of the probe),
+//     and streams only its share of each unit's x, so every x byte crosses
+//     from device memory once;
+//   * warpgroup MMAs from shared-memory descriptors, both operands K-major:
+//     s8 wgmma.m64n128k32, bf16 wgmma.m64n128k16 (32 bytes of K a step).
+//     A share is chunks of 128 bytes of K with the 128-byte swizzle, or,
+//     where it is no multiple of 128 bytes, of 64 bytes with the 64-byte
+//     swizzle (s8 K 128 and bf16 K 128: one chunk of 64 bytes);
+//   * persistent clusters (as many as the card holds at once), each walking
+//     units. A producer warp (one thread issues) loads the weights once and
+//     streams the unit's x share by TMA, one box of 128 rows x a chunk a
+//     stage, through a ring of up to 8 stages, running ahead across units;
+//     the consumers (two warpgroups, an M tile of 64 rows each) only wait,
+//     issue MMAs and release: per stage ndots x chunk / 32 wgmmas each, all
+//     into one accumulator. Shared memory of a block: 1,024 bytes of
+//     barriers, 98,304 of weights, the partial sums' receive slots (s8
+//     32,768, bf16 49,152), then the ring: s8 6 stages of 16 KB (K 256,
+//     512) or 8 of 8 KB (K 128); bf16 5 of 16 KB or 8 of 8 KB (+ 1,024 of
+//     alignment: at most 232,448);
+//   * the cluster adds its partial sums only where rows are stored (r < W:
+//     the first two units of a step at W 224), warp by warp: warp (wg, w)
+//     of each block holds the same 16 rows, and rank s finalizes columns
+//     [128 s / CL, 128 (s + 1) / CL). Each lane writes the sums of the
+//     other ranks' columns into their receive slots (distributed shared
+//     memory, st.shared::cluster) and arrives on their mbarrier (release at
+//     cluster scope); after its own has completed, it adds the CL partial
+//     sums in rank order 0 .. CL - 1, tells the senders that their slots are
+//     free, and stores its rows < W. Sums of integers are exact in s32, and
+//     in f32 below 2^24, so the result does not depend on the split.
+// K bytes must split into CL shares of a multiple of 64 bytes (s8 and bf16:
+// K a multiple of 128 values), M = R W a multiple of 128, N = 128, and the
+// weights must fit beside the receive slots and two stages.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,22 +64,21 @@
 namespace {
 
 constexpr int CONSUMERS = 256;                 // 2 warpgroups, an M tile (64 rows) each
+constexpr int WARPS = CONSUMERS / 32;
 constexpr int THREADS = CONSUMERS + 32;        // + the producer warp
 constexpr int N = 128;                         // the probe's output channels
 constexpr int UNIT_ROWS = 128;                 // rows of x a unit (both M tiles)
-constexpr int STAGE = UNIT_ROWS * 128;         // 128 rows x 128 bytes of K (16 KB)
-constexpr int MAX_STAGES = 4;
+constexpr int MAX_STAGES = 8;
 constexpr int HEAD = 1024;                     // barriers (the tiles stay 1,024-byte aligned)
+constexpr int ACC = N / 2;                     // sums a thread (m64n128)
 
 template <typename T> struct Traits;
 template <> struct Traits<int8_t> {
-  static constexpr int BN = 128, KV = 128;     // a block's N; K values in 128 bytes
-  static constexpr int ACC = BN / 2;           // s32 sums a thread (m64n128)
+  static constexpr int CL = 2;                 // blocks of a cluster: K shares
   using Acc = int;
 };
 template <> struct Traits<__nv_bfloat16> {
-  static constexpr int BN = 64, KV = 64;
-  static constexpr int ACC = BN / 2;           // f32 sums a thread (m64n64)
+  static constexpr int CL = 4;
   using Acc = float;
 };
 
@@ -89,25 +105,10 @@ __device__ __forceinline__ void wgmma_s8_n128(int* d, uint64_t da, uint64_t db) 
       : "l"(da), "l"(db), "r"(1));
 }
 
-// d += A (64 x 16 bf16) x B (16 x 64 bf16), both K-major in shared memory
-__device__ __forceinline__ void wgmma_bf16_n64(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, "
-      "0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
 __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db) { wgmma_s8_n128(d, da, db); }
-__device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) { wgmma_bf16_n64(d, da, db); }
+__device__ __forceinline__ void mma(float* d, uint64_t da, uint64_t db) {
+  sm90::wgmma_bf16_n128(d, da, db, 1);
+}
 
 template <int N_>
 __device__ __forceinline__ void pin(int* d) {
@@ -117,33 +118,47 @@ __device__ __forceinline__ void pin(int* d) {
 template <int N_>
 __device__ __forceinline__ void pin(float* d) { sm90::pin<N_>(d); }
 
+__device__ __forceinline__ uint32_t bits(int v) { return static_cast<uint32_t>(v); }
+__device__ __forceinline__ uint32_t bits(float v) { return __float_as_uint(v); }
+__device__ __forceinline__ void unbits(uint32_t b, int& v) { v = static_cast<int>(b); }
+__device__ __forceinline__ void unbits(uint32_t b, float& v) { v = __uint_as_float(b); }
+
 struct Params {
   int steps, m, w_out, ndots;
-  int nk;              // 128-byte K chunks
+  int nk;              // K chunks of a share
+  int share_k;         // K values of a share
   int stages;
   int units;           // (step, 128-row group) pairs
 };
 
-template <typename T>
+// CB: bytes of K a chunk (128: the 128-byte swizzle; 64: the 64-byte one)
+template <typename T, int CB>
 __global__ void __launch_bounds__(THREADS, 1) mma_rate_kernel(
     const __grid_constant__ CUtensorMap xmap,    // x as [steps * M rows][K]
     const __grid_constant__ CUtensorMap wmap,    // w^T as [ndots * 128 rows (n)][K]
     typename Traits<T>::Acc* __restrict__ out,   // [steps][W][128]
     const Params p) {
-  using TR = Traits<T>;
-  using Acc = typename TR::Acc;
-  constexpr int WT = TR::BN * 128;              // one (dot, K chunk) weight tile
+  using Acc = typename Traits<T>::Acc;
+  constexpr int CL = Traits<T>::CL;
+  constexpr int KV = CB / static_cast<int>(sizeof(T));   // K values a chunk
+  constexpr int STAGE = UNIT_ROWS * CB;         // a chunk of 128 rows of x
+  constexpr int WT = N * CB;                    // one (dot, chunk) weight tile
+  constexpr int VALS = ACC / CL;                // sums a lane exchanges with a rank
+  constexpr int JPR = N / 8 / CL;               // 8-column groups a rank finalizes
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_addr(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;   // swizzled tiles: 1,024-byte aligned
+  unsigned char* const gbase = smem_raw + (base - raw);
   const uint32_t full0 = base, empty0 = base + 8 * MAX_STAGES, wbar = base + 16 * MAX_STAGES;
+  const uint32_t xfull0 = wbar + 8, xfree0 = xfull0 + 8 * WARPS;   // a consumer warp's pair
   const uint32_t s_w = base + HEAD;
-  const uint32_t s_ring = s_w + p.ndots * p.nk * WT;
+  const uint32_t s_recv = s_w + p.ndots * p.nk * WT;   // [CL - 1][WARPS][VALS][32 lanes]
+  const uint32_t s_ring = s_recv + (CL - 1) * WARPS * VALS * 128;
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int slices = N / TR::BN;
-  const int slice = blockIdx.x % slices, first = blockIdx.x / slices;
-  const int step = gridDim.x / slices;
+  const int rank = static_cast<int>(sm90::cluster_rank());
+  const int first = blockIdx.x / CL, step = gridDim.x / CL;   // the cluster's units
   const int groups = p.m / UNIT_ROWS;            // units of one step
+  const int k0 = rank * p.share_k;               // the block's K share
 
   if (t == 0) {
     for (int s = 0; s < MAX_STAGES; ++s) {
@@ -151,18 +166,21 @@ __global__ void __launch_bounds__(THREADS, 1) mma_rate_kernel(
       sm90::mbar_init(empty0 + 8 * s, CONSUMERS / 32);
     }
     sm90::mbar_init(wbar, 1);
+    for (int w = 0; w < WARPS; ++w) {            // every lane of the other ranks' warp w
+      sm90::mbar_init(xfull0 + 8 * w, (CL - 1) * 32);
+      sm90::mbar_init(xfree0 + 8 * w, (CL - 1) * 32);
+    }
     sm90::mbar_init_fence();
   }
-  __syncthreads();
+  sm90::cluster_sync();                          // the barriers exist before any remote arrival
 
-  if (warp == CONSUMERS / 32) {
-    // the producer: the weights once, then every unit's x in K chunks
+  if (warp == WARPS) {
+    // the producer: the weights' share once, then every unit's x share in chunks
     if (lane == 0 && first < p.units) {
       sm90::mbar_expect_tx(wbar, p.ndots * p.nk * WT);
       for (int i = 0; i < p.ndots; ++i)
         for (int c = 0; c < p.nk; ++c)
-          sm90::tma_load_2d(s_w + (i * p.nk + c) * WT, &wmap, c * TR::KV,
-                            i * N + slice * TR::BN, wbar);
+          sm90::tma_load_2d(s_w + (i * p.nk + c) * WT, &wmap, k0 + c * KV, i * N, wbar);
       int k = 0;
       for (int u = first; u < p.units; u += step) {
         const int row = (u / groups) * p.m + (u % groups) * UNIT_ROWS;
@@ -170,116 +188,197 @@ __global__ void __launch_bounds__(THREADS, 1) mma_rate_kernel(
           const int s = k % p.stages;
           sm90::mbar_wait(empty0 + 8 * s, ((k / p.stages) & 1) ^ 1);
           sm90::mbar_expect_tx(full0 + 8 * s, STAGE);
-          sm90::tma_load_2d(s_ring + s * STAGE, &xmap, c * TR::KV, row, full0 + 8 * s);
+          sm90::tma_load_2d(s_ring + s * STAGE, &xmap, k0 + c * KV, row, full0 + 8 * s);
         }
       }
     }
-    return;
+  } else {
+    // the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each unit
+    const int wg = warp >> 2, w = warp & 3, g = lane >> 2, q = lane & 3;
+    if (first < p.units) sm90::mbar_wait(wbar, 0);
+    Acc acc[ACC];
+    int k = 0, nx = 0;                           // stages taken; exchanges made
+#pragma unroll 1
+    for (int u = first; u < p.units; u += step) {
+#pragma unroll
+      for (int j = 0; j < ACC; ++j) acc[j] = 0;
+      pin<ACC>(acc);
+#pragma unroll 1
+      for (int c = 0; c < p.nk; ++c, ++k) {
+        const int s = k % p.stages;
+        sm90::mbar_wait(full0 + 8 * s, (k / p.stages) & 1);
+        const uint32_t a0 = s_ring + s * STAGE + wg * 64 * CB;
+        sm90::wgmma_fence();
+#pragma unroll 1
+        for (int i = 0; i < p.ndots; ++i) {
+          const uint32_t b0 = s_w + (i * p.nk + c) * WT;
+#pragma unroll
+          for (int j = 0; j < CB / 32; ++j) {      // 32 bytes of K a step
+            if constexpr (CB == 128)
+              mma(acc, sm90::desc_sw128(a0 + 32 * j), sm90::desc_sw128(b0 + 32 * j));
+            else
+              mma(acc, sm90::desc_sw64(a0 + 32 * j), sm90::desc_sw64(b0 + 32 * j));
+          }
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<1>();
+        pin<ACC>(acc);
+        if (c > 0) {                             // stage k - 1's wgmmas are done
+          __syncwarp();
+          if (lane == 0) sm90::mbar_arrive(empty0 + 8 * ((k - 1) % p.stages));
+        }
+      }
+      sm90::wgmma_wait<0>();
+      pin<ACC>(acc);
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(empty0 + 8 * ((k - 1) % p.stages));
+
+      // acc[4j + 2h + e]: unit row 64 wg + 16 w + g + 8 h, column 8 j + 2 q + e;
+      // rank s's columns are j in [s JPR, (s + 1) JPR): acc[s VALS + v]
+      const int gstep = u / groups;
+      const int row0 = (u % groups) * UNIT_ROWS + 64 * wg + 16 * w + g;
+      if (row0 - g >= p.w_out) continue;         // warp-uniform: no row of the warp stored
+      const uint32_t par = nx & 1;
+      ++nx;
+      sm90::mbar_wait_cluster(xfree0 + 8 * warp, par ^ 1);   // the ranks read our last sums
+#pragma unroll
+      for (int s = 0; s < CL; ++s) {
+        if (s == rank) continue;
+        const int slot = rank < s ? rank : rank - 1;         // our slot at rank s
+        const uint32_t dst =
+            sm90::cluster_map(s_recv + (slot * WARPS + warp) * VALS * 128 + lane * 4, s);
+#pragma unroll
+        for (int v = 0; v < VALS; ++v) sm90::cluster_store(dst + v * 128, bits(acc[s * VALS + v]));
+        sm90::cluster_arrive(sm90::cluster_map(xfull0 + 8 * warp, s));
+      }
+      sm90::mbar_wait_cluster(xfull0 + 8 * warp, par);       // every rank's sums for us
+#pragma unroll
+      for (int s = 0; s < CL; ++s) {
+        if (s != rank) continue;
+        Acc sum[VALS];
+#pragma unroll
+        for (int v = 0; v < VALS; ++v) sum[v] = 0;
+#pragma unroll
+        for (int r = 0; r < CL; ++r) {           // in rank order
+          if (r == s) {
+#pragma unroll
+            for (int v = 0; v < VALS; ++v) sum[v] += acc[s * VALS + v];
+          } else {
+            const unsigned char* src =
+                gbase + (s_recv - base) + ((r < s ? r : r - 1) * WARPS + warp) * VALS * 128 +
+                lane * 4;
+#pragma unroll
+            for (int v = 0; v < VALS; ++v) {
+              Acc x;
+              unbits(*reinterpret_cast<const uint32_t*>(src + v * 128), x);
+              sum[v] += x;
+            }
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < CL; ++r)             // the slots may be written again
+          if (r != s) sm90::cluster_arrive(sm90::cluster_map(xfree0 + 8 * warp, r));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = row0 + 8 * h;
+          if (r >= p.w_out) continue;
+          Acc* o = out + (static_cast<size_t>(gstep) * p.w_out + r) * N + 2 * q;
+#pragma unroll
+          for (int jj = 0; jj < JPR; ++jj) {
+            const int j = s * JPR + jj;
+            o[8 * j] = sum[4 * jj + 2 * h];
+            o[8 * j + 1] = sum[4 * jj + 2 * h + 1];
+          }
+        }
+      }
+    }
+  }
+  // no block leaves while another may still write to its shared memory
+  sm90::cluster_sync();
+}
+
+template <typename T, int CB>
+int launch_cb(const void* x, const void* wt, void* out, const Params& p0, int K,
+              cudaStream_t st) {
+  using Acc = typename Traits<T>::Acc;
+  constexpr int CL = Traits<T>::CL;
+  constexpr int VALS = ACC / CL;
+  constexpr int STAGE = UNIT_ROWS * CB;
+  auto kernel = mma_rate_kernel<T, CB>;
+  int sms = 0, optin = 0;
+  cudaError_t e = sm90::device_limits(&sms, &optin);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  Params p = p0;
+  p.nk = p.share_k * static_cast<int>(sizeof(T)) / CB;
+  const int wbytes = p.ndots * p.nk * N * CB;
+  const int fixed = 1024 + HEAD + wbytes + (CL - 1) * WARPS * VALS * 128;   // + the alignment
+  const int per = optin > fixed ? (optin - fixed) / STAGE : 0;
+  if (per < 2) return static_cast<int>(cudaErrorInvalidValue);   // weights too large
+  p.stages = per < MAX_STAGES ? per : MAX_STAGES;
+  const int smem = fixed + p.stages * STAGE;
+  e = sm90::allow_smem<mma_rate_kernel<T, CB>>(smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+
+  const CUtensorMapDataType type =
+      sizeof(T) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const CUtensorMapSwizzle swizzle =
+      CB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  const cuuint64_t row_bytes = static_cast<cuuint64_t>(K) * sizeof(T);
+  const cuuint32_t box_k = CB / sizeof(T);
+  CUtensorMap xmap, wmap;
+  {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                                static_cast<cuuint64_t>(p.steps) * static_cast<cuuint64_t>(p.m)};
+    const cuuint32_t box[2] = {box_k, UNIT_ROWS};
+    e = sm90::encode_tensor_map(&xmap, type, 2, x, dims, &row_bytes, box, swizzle);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(p.ndots) * N};
+    const cuuint32_t box[2] = {box_k, N};
+    e = sm90::encode_tensor_map(&wmap, type, 2, wt, dims, &row_bytes, box, swizzle);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
 
-  // the consumers: warpgroup wg owns rows 64 wg .. 64 wg + 63 of each unit
-  const int wg = warp >> 2, w = warp & 3, g = lane >> 2, q = lane & 3;
-  if (first < p.units) sm90::mbar_wait(wbar, 0);
-  Acc acc[TR::ACC];
-  int k = 0;
-#pragma unroll 1
-  for (int u = first; u < p.units; u += step) {
-#pragma unroll
-    for (int j = 0; j < TR::ACC; ++j) acc[j] = 0;
-    pin<TR::ACC>(acc);
-#pragma unroll 1
-    for (int c = 0; c < p.nk; ++c, ++k) {
-      const int s = k % p.stages;
-      sm90::mbar_wait(full0 + 8 * s, (k / p.stages) & 1);
-      const uint32_t a0 = s_ring + s * STAGE + wg * 64 * 128;
-      sm90::wgmma_fence();
-#pragma unroll 1
-      for (int i = 0; i < p.ndots; ++i) {
-        const uint32_t b0 = s_w + (i * p.nk + c) * WT;
-#pragma unroll
-        for (int j = 0; j < 4; ++j)              // 32 bytes of K a step
-          mma(acc, sm90::desc_sw128(a0 + 32 * j), sm90::desc_sw128(b0 + 32 * j));
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<1>();
-      pin<TR::ACC>(acc);
-      if (k > 0) {                               // stage k - 1's wgmmas are done
-        __syncwarp();
-        if (lane == 0) sm90::mbar_arrive(empty0 + 8 * ((k - 1) % p.stages));
-      }
-    }
-    sm90::wgmma_wait<0>();
-    pin<TR::ACC>(acc);
-    // acc[4j + 2h + e]: unit row 64 wg + 16 w + g + 8 h, column 8 j + 2 q + e
-    const int gstep = u / groups;
-    const int row0 = (u % groups) * UNIT_ROWS + 64 * wg + 16 * w + g;
-    if (row0 - g < p.w_out) {                    // warp-uniform: some row of the warp stored
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = row0 + 8 * h;
-        if (r >= p.w_out) continue;
-        Acc* o = out + (static_cast<size_t>(gstep) * p.w_out + r) * N + slice * TR::BN + 2 * q;
-#pragma unroll
-        for (int j = 0; j < TR::BN / 8; ++j) {
-          o[8 * j] = acc[4 * j + 2 * h];
-          o[8 * j + 1] = acc[4 * j + 2 * h + 1];
-        }
-      }
-    }
-  }
-  // the last stage of the block is released with the launch's end
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // persistent clusters: as many as the card holds at once, at most one a unit
+  int clusters = 0;
+  cfg.gridDim = dim3((sms / CL) * CL);
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (clusters < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (clusters > p.units) clusters = p.units;
+  cfg.gridDim = dim3(clusters * CL);
+  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wmap, static_cast<Acc*>(out), p);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch(const void* x, const void* wt, void* out, int steps, int m, int w_out, int K,
            int ndots, cudaStream_t st) {
-  using TR = Traits<T>;
+  constexpr int CL = Traits<T>::CL;
   if (steps == 0) return static_cast<int>(cudaSuccess);
-  if (K % TR::KV != 0 || m % UNIT_ROWS != 0 || w_out > m || ndots < 1)
+  const int kb = K * static_cast<int>(sizeof(T));
+  if (K < 1 || kb % (64 * CL) != 0 || m % UNIT_ROWS != 0 || w_out > m || ndots < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  int sms = 0, optin = 0;
-  cudaError_t e = sm90::device_limits(&sms, &optin);
-  if (e != cudaSuccess) return static_cast<int>(e);
-
   Params p;
   p.steps = steps, p.m = m, p.w_out = w_out, p.ndots = ndots;
-  p.nk = K / TR::KV;
-  const int wbytes = ndots * p.nk * TR::BN * 128;
-  const int fixed = 1024 + HEAD + wbytes;       // + the 1,024-byte alignment
-  const int per = optin > fixed ? (optin - fixed) / STAGE : 0;
-  if (per < 2) return static_cast<int>(cudaErrorInvalidValue);   // weights too large
-  p.stages = per < MAX_STAGES ? per : MAX_STAGES;
-  const int smem = fixed + p.stages * STAGE;
+  p.share_k = K / CL;
   p.units = steps * (m / UNIT_ROWS);
-  e = sm90::allow_smem<mma_rate_kernel<T>>(smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-
-  const CUtensorMapDataType type =
-      sizeof(T) == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  const cuuint64_t row_bytes = static_cast<cuuint64_t>(K) * sizeof(T);
-  CUtensorMap xmap, wmap;
-  {
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
-                                static_cast<cuuint64_t>(steps) * static_cast<cuuint64_t>(m)};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(TR::KV), UNIT_ROWS};
-    e = sm90::encode_tensor_map(&xmap, type, 2, x, dims, &row_bytes, box,
-                                CU_TENSOR_MAP_SWIZZLE_128B);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  {
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(ndots) * N};
-    const cuuint32_t box[2] = {static_cast<cuuint32_t>(TR::KV), static_cast<cuuint32_t>(TR::BN)};
-    e = sm90::encode_tensor_map(&wmap, type, 2, wt, dims, &row_bytes, box,
-                                CU_TENSOR_MAP_SWIZZLE_128B);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const int slices = N / TR::BN;
-  int per_slice = sms / slices;
-  if (per_slice > p.units) per_slice = p.units;
-  if (per_slice < 1) per_slice = 1;
-  mma_rate_kernel<T><<<per_slice * slices, THREADS, smem, st>>>(
-      xmap, wmap, static_cast<typename TR::Acc*>(out), p);
-  return static_cast<int>(cudaGetLastError());
+  // shares of a multiple of 128 bytes: 128-byte chunks; else 64-byte ones
+  return (kb / CL) % 128 == 0 ? launch_cb<T, 128>(x, wt, out, p, K, st)
+                              : launch_cb<T, 64>(x, wt, out, p, K, st);
 }
 
 }  // namespace

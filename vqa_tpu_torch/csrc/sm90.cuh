@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by kernels D (conv3x3_f.cu) and E
-// (coattention_fwd.cu): mbarriers, TMA and bulk copies into shared memory,
-// shared-memory matrix descriptors, warpgroup MMAs (wgmma) with f32 sums,
-// and the 3xTF32 split of an f32 value.
+// Hopper (sm_90a) building blocks shared by kernels D (conv3x3_f.cu), E
+// (coattention_fwd.cu) and F (mma_rate.cu): mbarriers, TMA and bulk copies
+// into shared memory, TMA stores out of it, shared-memory matrix
+// descriptors, warpgroup MMAs (wgmma) with f32 sums, the 3xTF32 split of an
+// f32 value, and a thread-block cluster's distributed shared memory.
 //
 // Layout every wgmma operand here uses: K-major without swizzle. A "core
 // matrix" is 8 rows x 16 bytes of K stored as 128 contiguous bytes; a
@@ -82,6 +83,35 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
                : "memory");
 }
 
+// TMA store of one box of a tensor map from shared memory (coordinates
+// innermost first; the box's elements outside the tensor are not written),
+// in this thread's current bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1,
+                                             int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
+               "[%0, {%2, %3, %4, %5}], [%1];\n"
+               :: "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2),
+                  "r"(c3)
+               : "memory");
+}
+
+// Closes this thread's current bulk group of TMA stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's bulk groups still read their
+// shared-memory sources (the sources of the others may be rewritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Waits until every bulk group of this thread has completed its writes.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // Makes this thread's generic-proxy shared-memory writes visible to the
 // async proxy (wgmma reads, TMA and bulk copies).
 __device__ __forceinline__ void fence_async_shared() {
@@ -107,6 +137,14 @@ __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t s
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
   return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (static_cast<uint64_t>(1) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
+
+// The same for the 64-byte swizzle (rows of 64 bytes of K, 8-row atoms of
+// 512 bytes, the atom 512-byte aligned: a TMA box of 64 bytes x rows with
+// CU_TENSOR_MAP_SWIZZLE_64B); `addr` may step 32 bytes along K.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr >> 4) & 0x3FFF) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -173,6 +211,52 @@ __device__ __forceinline__ float4 split4(float4 v, float4& lo) {
   split(v.z, hi.z, lo.z);
   split(v.w, hi.w, lo.w);
   return hi;
+}
+
+// ---- thread-block clusters ----
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every non-exited thread of the cluster arrives, then waits for the rest:
+// shared-memory writes (and mbarrier inits) before it are visible after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::: "memory");
+}
+
+// The address of `addr` (this block's shared memory) in block `rank` of the
+// cluster, for the shared::cluster instructions below.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void cluster_store(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" :: "r"(addr), "r"(v) : "memory");
+}
+
+// An arrival on an mbarrier of another block of the cluster, releasing this
+// thread's earlier writes (its stores to that block included) at cluster scope.
+__device__ __forceinline__ void cluster_arrive(uint32_t remote_bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n"
+               :: "r"(remote_bar) : "memory");
+}
+
+// mbar_wait that acquires at cluster scope: what the other blocks' threads
+// wrote before their cluster_arrive on `bar` is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  for (long long n = 0;; ++n) {
+    uint32_t done;
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (n > (1ll << 22)) __trap();
+  }
 }
 
 // ---- host ----

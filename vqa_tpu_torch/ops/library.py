@@ -208,9 +208,11 @@ def _mma_rate_cuda(x, w):
         raise ValueError(f"mma_rate: need x [G,R,W,K] and w [ndots,K,{mma_rate.N}] of one type, "
                          f"int8 or bfloat16, got x{tuple(x.shape)} {x.dtype} "
                          f"w{tuple(w.shape)} {w.dtype}")
-    k_bytes = x.shape[3] * x.element_size()
-    if k_bytes % 128 or (x.shape[1] * x.shape[2]) % mma_rate.UNIT_ROWS:
-        raise ValueError(f"mma_rate: the CUDA kernel needs K of a multiple of 128 bytes and "
+    cluster = mma_rate.CLUSTER[x.dtype]
+    if not mma_rate.k_chunk(x.shape[3] * x.element_size(), cluster) \
+            or (x.shape[1] * x.shape[2]) % mma_rate.UNIT_ROWS:
+        raise ValueError(f"mma_rate: the CUDA kernel splits K across {cluster} blocks, so K "
+                         f"must be a multiple of {mma_rate.SHARE_ALIGN * cluster} bytes, and "
                          f"R W a multiple of {mma_rate.UNIT_ROWS}, got x{tuple(x.shape)}")
     x = x.contiguous()
     if x.data_ptr() % 16:

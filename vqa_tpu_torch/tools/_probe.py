@@ -15,8 +15,10 @@ does it, included), the launch alone on operands prepared outside the timed
 call (``launch_ms``), its bound (the larger of the bytes of the launch's
 operands, each read or written once, over 3.35 TB/s and its operations over
 the published peak of their type), a PyTorch call that computes the same
-product as a yardstick (``library_ms``; timed at b32 where its operands
-would pass 8 GB) and, where it fits, the plain version (``plain_ms``). The
+product as a yardstick (``library_ms``, over the whole batch; where its
+operands would pass 8 GB, the sum of its times on slices of 32 samples,
+each slice's operands built in turn, the first slice's time kept as
+``library_slice_ms``) and, where it fits, the plain version (``plain_ms``). The
 last output of the timed wrapper calls and of the timed launches is held to
 the plain version as before timing. The counts of launches are zeroed just
 before each variant's timed calls and read just after. ``--device cpu``
@@ -45,8 +47,8 @@ HBM_BPS, INT8_OPS, BF16_FLOPS, F32_FLOPS = 3.35e12, 1979e12, 989e12, 67e12
 # TF32 tensor-core FLOP/s: an f32-accurate product costs three TF32 MMAs
 # (3xTF32), the card's fastest way to kernel C's f32 function
 TF32_FLOPS = 494.7e12
-LIBRARY_BYTES_LIMIT = 8e9      # a yardstick's operands above this run at b32
-LIBRARY_BATCH = 32
+LIBRARY_BYTES_LIMIT = 8e9      # a yardstick's operands above this run in slices
+LIBRARY_BATCH = 32             # of this many samples
 S_X = 4.0 / 127.0              # the TPU probes' static activation scale
 
 
@@ -109,6 +111,37 @@ def timed(fn, n: int):
 
 
 @dataclasses.dataclass
+class Slices:
+    """A yardstick whose operands would pass ``LIBRARY_BYTES_LIMIT`` at the
+    whole batch: ``make(lo, hi)`` builds its call on samples ``lo:hi``; it
+    is timed slice by slice (``size`` samples each) and the times summed."""
+    batch: int
+    size: int
+    make: Callable[[int, int], Callable]
+
+
+def library_call(batch: int, nbytes_at_batch: float, make: Callable[[int, int], Callable]):
+    """A yardstick over the whole batch: ``make(0, batch)`` where its
+    operands fit in ``LIBRARY_BYTES_LIMIT``, else :class:`Slices` of
+    ``LIBRARY_BATCH`` samples."""
+    if nbytes_at_batch <= LIBRARY_BYTES_LIMIT:
+        return make(0, batch)
+    return Slices(batch, LIBRARY_BATCH, make)
+
+
+def time_library(library, steps: int):
+    """(ms of the whole batch's yardstick, ms of its first slice or None)."""
+    if not isinstance(library, Slices):
+        return timed(library, steps)[0], None
+    times = []
+    for lo in range(0, library.batch, library.size):
+        fn = library.make(lo, min(lo + library.size, library.batch))
+        times.append(timed(fn, steps)[0])
+        del fn
+    return sum(times), times[0]
+
+
+@dataclasses.dataclass
 class Variant:
     """One function of a probe on one kernel mode.
 
@@ -120,9 +153,10 @@ class Variant:
     sample is held to it; ``more_check`` is a further check (returns the
     largest absolute difference, raises where the kernel disagrees).
     ``work`` is (bytes, operations, peak) of the launch, ``library`` a
-    yardstick call (or None) described by ``library_note`` at
-    ``library_batch``, ``plain`` the plain version at the full shape (or
-    None where it does not fit: the int8 ones sum in float64).
+    yardstick call over the whole batch (a callable, :class:`Slices`, or
+    None) described by ``library_note``, ``plain`` the plain version at the
+    full shape (or None where it does not fit: the int8 ones sum in
+    float64).
     """
     probe: str
     row: str
@@ -134,9 +168,8 @@ class Variant:
     launch: Callable
     reference: Callable[[slice], tuple]
     work: tuple
-    library: Callable | None = None
+    library: Callable | Slices | None = None
     library_note: str = "none"
-    library_batch: int | None = None
     plain: Callable | None = None
     whole: bool = False
     more_check: Callable[[], float] | None = None
@@ -193,12 +226,13 @@ def time_variant(v: Variant, steps: int, check: Checker) -> dict:
                              f"for {2 * (steps + 1)} calls, others {others}, plain {plain}")
     err = max(check("timed wrapper", out), check("timed launch", lout))
     del out, lout
-    lib = timed(v.library, steps)[0] if v.library is not None else None
+    lib, lib_slice = time_library(v.library, steps) if v.library is not None else (None, None)
     pms = timed(v.plain, 2)[0] if v.plain is not None else None
     bms, by = bound(*v.work)
     return {"ms": ms, "launch_ms": lms, "bound_ms": bms, "bound_by": by,
-            "share_of_bound": bms / lms, "library_ms": lib, "plain_ms": pms,
-            "launches": launches, "timed_err": err}
+            "share_of_bound": bms / lms, "library_ms": lib, "library_slice_ms": lib_slice,
+            "library_slice_batch": v.library.size if isinstance(v.library, Slices) else None,
+            "plain_ms": pms, "launches": launches, "timed_err": err}
 
 
 def run(variants, steps: int, card: str) -> list[dict]:
@@ -214,7 +248,7 @@ def run(variants, steps: int, card: str) -> list[dict]:
         t = time_variant(v, steps, check)
         row = {"probe": v.probe, "row": v.row, "variant": v.name, "kernel": v.kernel.symbol,
                "mode": v.mode, "shape": v.shape, "max_abs_err": max(err, t.pop("timed_err")),
-               **t, "library": v.library_note, "library_batch": v.library_batch, **v.extra,
+               **t, "library": v.library_note, **v.extra,
                "card": card}
         rows.append(row)
         print(json.dumps(row), flush=True)
@@ -222,34 +256,35 @@ def run(variants, steps: int, card: str) -> list[dict]:
     return rows
 
 
-def _library_batch(batch: int, nbytes_at_batch: float) -> int:
-    return batch if nbytes_at_batch <= LIBRARY_BYTES_LIMIT else min(batch, LIBRARY_BATCH)
-
-
 def im2col_int_mm(x_q, w_q):
-    """(yardstick, note, batch): ``torch._int_mm`` on the im2col matrix of
-    a pad-1 conv3x3, [B H W, 9 C] x [9 C, O] with a column-major second
-    operand (cuBLASLt's int8 tensor-core GEMM): the product alone, int32
-    out, no im2col, pool or epilogue; of the first 32 samples where the
-    whole batch's operands pass 8 GB."""
+    """(yardstick, note): ``torch._int_mm`` on the im2col matrix of a pad-1
+    conv3x3, [B H W, 9 C] x [9 C, O] with a column-major second operand
+    (cuBLASLt's int8 tensor-core GEMM): the product alone, int32 out, no
+    im2col, pool or epilogue; over the whole batch, in slices of 32 samples
+    where the whole batch's operands pass 8 GB."""
     b, h, wd, c = x_q.shape
     o = w_q.shape[-1]
-    lb = _library_batch(b, b * h * wd * (9 * c + 4 * o))
-    xp = torch.nn.functional.pad(x_q[:lb], (0, 0, 1, 1, 1, 1))
-    cols = torch.cat([xp[:, ky:ky + h, kx:kx + wd] for ky in range(3) for kx in range(3)], -1)
-    cols = cols.reshape(-1, 9 * c)
     wmat = w_q.reshape(9 * c, o).t().contiguous().t()
-    return (lambda: torch._int_mm(cols, wmat),
-            f"torch._int_mm on im2col [{cols.shape[0]}, {9 * c}] x [{9 * c}, {o}]", lb)
+
+    def make(lo, hi):
+        xp = torch.nn.functional.pad(x_q[lo:hi], (0, 0, 1, 1, 1, 1))
+        cols = torch.cat([xp[:, ky:ky + h, kx:kx + wd] for ky in range(3) for kx in range(3)],
+                         -1).reshape(-1, 9 * c)
+        return lambda: torch._int_mm(cols, wmat)
+    lib = library_call(b, b * h * wd * (9 * c + 4 * o), make)
+    note = f"torch._int_mm on im2col [{b * h * wd}, {9 * c}] x [{9 * c}, {o}]"
+    if isinstance(lib, Slices):
+        note += f", as {-(-b // lib.size)} GEMMs of {lib.size}-sample slices, summed"
+    return lib, note
 
 
 def cudnn_conv(x, w):
-    """(yardstick, note, batch): ``F.conv2d`` (cuDNN, pad 1) on NHWC x and
+    """(yardstick, note): ``F.conv2d`` (cuDNN, pad 1) on NHWC x and
     HWIO w read as NCHW / OIHW: the conv alone, no bias, ReLU or pool."""
     x_nchw = x.permute(0, 3, 1, 2)
     w_oihw = w.to(x.dtype).permute(3, 2, 0, 1).contiguous()
     return (lambda: torch.nn.functional.conv2d(x_nchw, w_oihw, padding=1),
-            "F.conv2d (cuDNN), the conv alone", x.shape[0])
+            "F.conv2d (cuDNN), the conv alone")
 
 
 def conv3x3_variant(probe, row, name, x, w, b, *, int8, pool, s_x=S_X, s_next=None,
@@ -279,13 +314,13 @@ def conv3x3_variant(probe, row, name, x, w, b, *, int8, pool, s_x=S_X, s_next=No
         out_es = 1 if s_next is not None else 2
         moved = nbytes(x_q, w_q, scale, b32) + bsz * ho * wo * o * out_es \
             + (nbytes(s_next) if s_next is not None else 0)
-        lib, note, lb = im2col_int_mm(x_q, w_q)
+        lib, note = im2col_int_mm(x_q, w_q)
         mode = f"int8 {'pooled' if pool else 'unpooled'}, " \
                f"{'int8 requant' if s_next is not None else 'bf16'} out"
         return Variant(probe, row, name, _build.CONV3X3_I8, mode, shape, wrapper,
                        lambda: conv_hpack.launch_int8_conv3x3(x_q, wp, scale, b32, **kw),
                        reference,
-                       (moved, 2.0 * bsz * h * wd * c * o * 9, INT8_OPS), lib, note, lb)
+                       (moved, 2.0 * bsz * h * wd * c * o * 9, INT8_OPS), lib, note)
     wp, bias = conv_hpack.conv3x3_f_operands(x, w, b)
 
     def reference_f(span):
@@ -293,12 +328,12 @@ def conv3x3_variant(probe, row, name, x, w, b, *, int8, pool, s_x=S_X, s_next=No
         return ref, conv_hpack.conv3x3_f_bound(x[span], w, ref, pool)
 
     moved = nbytes(x, wp, bias) + bsz * ho * wo * o * x.element_size()
-    lib, note, lb = cudnn_conv(x, w)
+    lib, note = cudnn_conv(x, w)
     return Variant(probe, row, name, _build.CONV3X3_F,
                    f"{str(x.dtype).replace('torch.', '')} {'pooled' if pool else 'unpooled'}",
                    shape, lambda: conv_hpack.conv3x3_f(x, w, b, pool),
                    lambda: conv_hpack.launch_conv3x3_f(x, wp, bias, pool), reference_f,
-                   (moved, 2.0 * bsz * h * wd * c * o * 9, BF16_FLOPS), lib, note, lb,
+                   (moved, 2.0 * bsz * h * wd * c * o * 9, BF16_FLOPS), lib, note,
                    plain=lambda: conv_hpack.conv3x3_f_plain(x, w, b, pool), whole=True)
 
 

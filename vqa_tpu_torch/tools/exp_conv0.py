@@ -49,13 +49,13 @@ def variants(dev, batch: int):
 
     bsz = x.shape[0]
     moved = _probe.nbytes(x, w, b) + bsz * (H // 2) * (H // 2) * 64 * 2
-    lib, note, lb = _probe.cudnn_conv(x, w)
+    lib, note = _probe.cudnn_conv(x, w)
     return [_probe.Variant("exp_conv0", "6a", "bdot", _build.CONV0_F, "bf16, NHWC store",
                            f"[{bsz}, {H}, {H}, 3] -> [{bsz}, {H // 2}, {H // 2}, 64]",
                            lambda: conv0(x, w, b),
                            lambda: conv_stage1.launch_conv0_f(x, wk, b32), reference,
                            (moved, 2.0 * bsz * H * H * 27 * 64, _probe.BF16_FLOPS),
-                           lib, note, lb)]
+                           lib, note)]
 
 
 def cpu_demo():

@@ -61,12 +61,20 @@ def conv0_variant(probe, row, name, x, w, b, s_x: tuple, s1: tuple):
         return conv_stage1.conv0_i8_plain(x_q[span].contiguous(), w_q, s_w, b32, s1=s1t), None
 
     # the yardstick: torch._int_mm on kernel A's im2col (27 taps zero-padded
-    # to 32) x [32, 64], column-major, int32 out: 9 + 256 bytes a pixel
-    lb = _probe._library_batch(bsz, bsz * h * wd * (32 + 256))
-    xp = F.pad(x_q[:lb], (0, 0, 1, 1, 1, 1))
-    cols = torch.cat([xp[:, ky:ky + h, kx:kx + wd] for ky in range(3) for kx in range(3)], -1)
-    cols = F.pad(cols, (0, 5)).reshape(-1, 32)
+    # to 32) x [32, 64], column-major, int32 out: 32 + 256 bytes a pixel,
+    # over the whole batch (in slices where that passes 8 GB)
     wmat = F.pad(w_q.reshape(27, 64), (0, 0, 0, 5)).t().contiguous().t()
+
+    def make(lo, hi):
+        xp = F.pad(x_q[lo:hi], (0, 0, 1, 1, 1, 1))
+        cols = torch.cat([xp[:, ky:ky + h, kx:kx + wd] for ky in range(3) for kx in range(3)],
+                         -1)
+        cols = F.pad(cols, (0, 5)).reshape(-1, 32)
+        return lambda: torch._int_mm(cols, wmat)
+    lib = _probe.library_call(bsz, bsz * h * wd * (32 + 256), make)
+    note = f"torch._int_mm on im2col [{bsz * h * wd}, 32] x [32, 64]"
+    if isinstance(lib, _probe.Slices):
+        note += f", as {-(-bsz // lib.size)} GEMMs of {lib.size}-sample slices, summed"
     moved = _probe.nbytes(x_q, w_q, s_w, b32, s1t) + bsz * (h // 2) * (wd // 2) * 64
     return _probe.Variant(
         probe, row, name, _build.CONV0_S2D_I8, "int8, requant hand-off",
@@ -74,8 +82,7 @@ def conv0_variant(probe, row, name, x, w, b, s_x: tuple, s1: tuple):
         lambda: conv0_i8_packed(x, w, b, s_x, s1),
         lambda: conv_stage1.launch_conv0_i8(x_q, wf, s_w, b32, s1=s1t), reference,
         (moved, 2.0 * bsz * h * wd * 27 * 64, _probe.INT8_OPS),
-        lambda: torch._int_mm(cols, wmat),
-        f"torch._int_mm on im2col [{cols.shape[0]}, 32] x [32, 64]", lb)
+        lib, note)
 
 
 def inputs(dev, batch: int, h: int):

@@ -14,8 +14,9 @@ a hand-written ``wgmma`` loop on this card sustains. The timed operands are
 grid guards the layout and the TMA ring. The yardstick is one GEMM of the
 same operations (:func:`stacked_operands`): ``torch._int_mm`` (int32 out) /
 ``torch.mm`` with f32 out of [GRID M, ndots K] x [ndots K, 128], which
-moves ndots times x's bytes; a square GEMM, bound by its operations, gives
-the library's own rate on this card (:func:`gemm_ceiling`).
+moves ndots times x's bytes; large GEMMs, bound by their operations (M = N
+= 8,192, K 4,096 to 16,384), give the library's own rate on this card
+(:func:`gemm_ceiling`), the best of them its ceiling.
 
     python -m vqa_tpu_torch.tools.exp_r5_mosaic_dot
 """
@@ -32,7 +33,8 @@ from ..ops import mma_rate as F_ops
 
 R, W, N = 16, 224, 128
 GRID = 700
-CEILING = 8192                                    # a square GEMM's side (gemm_ceiling)
+CEILING = 8192                                    # the ceiling GEMMs' M and N (gemm_ceiling)
+CEILING_KS = (4096, 8192, 16384)                  # and their K
 DEPTHS = ((128, 12), (256, 6), (512, 3))          # (K, ndots): K ndots = 1,536
 TYPES = {"s8": (torch.int8, _probe.INT8_OPS), "bf16": (torch.bfloat16, _probe.BF16_FLOPS)}
 
@@ -108,34 +110,42 @@ def product(a, b):
     return torch.mm(a, b, out_dtype=torch.float32)
 
 
-def gemm_ceiling(dev, label: str) -> tuple[float, float]:
-    """(ms, T/s) of one square GEMM of side CEILING on 2s: operations bound
-    it (2 S^3 of them on 3 S^2 values), so its rate is what the library
-    sustains on this card at its power limit."""
-    a = torch.full((CEILING, CEILING), 2, dtype=TYPES[label][0], device=dev)
-    b = a.t() if label == "s8" else a
+def gemm_ceiling(dev, label: str, k: int) -> tuple[float, float]:
+    """(ms, T/s) of one GEMM of M = N = CEILING and K ``k`` on 2s:
+    operations bound it (2 M N K of them on (M + N) K + M N values), so its
+    rate is what the library sustains on this card at its power limit."""
+    dtype = TYPES[label][0]
+    a = torch.full((CEILING, k), 2, dtype=dtype, device=dev)
+    b = torch.full((CEILING, k), 2, dtype=dtype, device=dev).t()   # column-major [k, N]
     ms = _probe.timed(lambda: product(a, b), 4)[0]
-    return ms, 2.0 * CEILING ** 3 / (ms * 1e-3) / 1e12
+    return ms, 2.0 * CEILING * CEILING * k / (ms * 1e-3) / 1e12
 
 
 def run_rates(rows):
     """The TPU probe's lines: the rate a pass sustains, against the peak,
-    the yardstick GEMM's rate on the same operations and the library's
-    rate on a square GEMM (:func:`gemm_ceiling`, once a type)."""
-    ceiling = {}
+    the yardstick GEMM's rate on the same operations, and the library's
+    rates on large GEMMs (:func:`gemm_ceiling` at each of CEILING_KS, once
+    a type; ``ceiling_tops`` the best)."""
+    ceilings = {}
     for r in rows:
         label = r["type"]
-        if label not in ceiling:
-            ceiling[label] = gemm_ceiling(torch.device("cuda"), label)
+        if label not in ceilings:
+            ceilings[label] = {k: gemm_ceiling(torch.device("cuda"), label, k)
+                               for k in CEILING_KS}
+            for k, (ms, tops) in ceilings[label].items():
+                print(f"ceiling {label} GEMM M = N = {CEILING}, K {k}: {ms:.4f} ms, {tops:.1f} "
+                      f"T/s ({100 * tops / r['peak_tops']:.1f}% of {r['peak_tops']:.0f}) "
+                      f"({r['card']})", flush=True)
         tops = r["operations"] / (r["launch_ms"] * 1e-3) / 1e12
         lib = r["operations"] / (r["library_ms"] * 1e-3) / 1e12
         r["rate_tops"], r["share_of_peak"], r["library_tops"] = tops, tops / r["peak_tops"], lib
-        r["ceiling_ms"], r["ceiling_tops"] = ceiling[label]
+        r["ceilings"] = {str(k): list(v) for k, v in ceilings[label].items()}
+        r["ceiling_tops"] = max(t for _, t in ceilings[label].values())
         print(f"{r['variant']}: {tops:.1f} T/s ({100 * r['share_of_peak']:.1f}% of "
               f"{r['peak_tops']:.0f}), {r['launch_ms']:.4f} ms a pass; the GEMM of its "
               f"operations {lib:.1f} T/s ({100 * lib / r['peak_tops']:.1f}%), "
-              f"{r['library_ms']:.4f} ms; a {CEILING}^3 GEMM {r['ceiling_tops']:.1f} T/s "
-              f"({100 * r['ceiling_tops'] / r['peak_tops']:.1f}%) ({r['card']})", flush=True)
+              f"{r['library_ms']:.4f} ms; the library's best large GEMM {r['ceiling_tops']:.1f} "
+              f"T/s ({100 * r['ceiling_tops'] / r['peak_tops']:.1f}%) ({r['card']})", flush=True)
     return rows
 
 
