@@ -32,6 +32,9 @@ first pair into an FMA). The port computes the same values: ``x * r - mean``
 is exact in float64 (an 8-bit integer times a 24-bit constant, plus a
 24-bit constant), so rounding it once to f32 is the FMA. Every op is exactly
 rounded, so the CPU and the card give the same bits.
+
+Spans (``train.profiling.span``): ``vqa.data.wait``, the consumer blocked on
+the loader's queue; ``vqa.data.device_batch``, the H2D copies and preprocess.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import torch.nn.functional as F
 
 from ..ops.quant import const
 from ..parallel.mesh import row_block
+from ..train.profiling import span
 from .dataset import VQASamples
 from .images import all_jpeg, decode_batch
 
@@ -236,7 +240,8 @@ class DataLoader:
         t.start()
         try:
             while True:
-                batch = q.get()
+                with span("vqa.data.wait"):
+                    batch = q.get()
                 if batch is None:
                     break
                 if isinstance(batch, BaseException):
@@ -255,11 +260,12 @@ def device_batch(batch: dict, preprocess, device) -> dict:
     """Host batch -> device batch: the image through ``preprocess`` (H2D +
     normalize on ``device``), or, with ``preprocess=None``, cached feature
     rows copied as they are; the int arrays as int64 tensors there."""
-    out = {k: torch.from_numpy(np.asarray(batch[k])).long().to(device, non_blocking=True)
-           for k in ("question", "ques_len", "label")}
-    out["image"] = (batch["image"].to(device, non_blocking=True) if preprocess is None
-                    else preprocess(batch["image"]))
-    return out
+    with span("vqa.data.device_batch"):
+        out = {k: torch.from_numpy(np.asarray(batch[k])).long().to(device, non_blocking=True)
+               for k in ("question", "ques_len", "label")}
+        out["image"] = (batch["image"].to(device, non_blocking=True) if preprocess is None
+                        else preprocess(batch["image"]))
+        return out
 
 
 def device_prefetch(batch_iter, prepare_batch, depth: int = 2):

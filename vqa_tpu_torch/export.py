@@ -48,6 +48,7 @@ from .config import resolve_device
 from .data.pipeline import preprocess_images
 from .ops import library
 from .serve import VQAPredictor, _ServingEngine, predictor_from_args
+from .train.profiling import span
 from .vocab import Vocab
 
 ARTIFACT = "serving_fn.pt2"
@@ -237,10 +238,14 @@ class ExportedPredictor(_ServingEngine):
     @torch.no_grad()
     def _probs(self, images_u8, ids, lens) -> np.ndarray:
         dev = self.device
-        probs = self._fn(torch.from_numpy(images_u8).to(dev),
-                         torch.from_numpy(ids).long().to(dev),
-                         torch.from_numpy(lens).long().to(dev))
-        return probs.cpu().numpy()
+        with span("vqa.serve.forward"):
+            with span("vqa.serve.to_device"):
+                args = (torch.from_numpy(images_u8).to(dev),
+                        torch.from_numpy(ids).long().to(dev),
+                        torch.from_numpy(lens).long().to(dev))
+            probs = self._fn(*args)
+            with span("vqa.serve.to_host"):
+                return probs.cpu().numpy()
 
 
 def build_parser():

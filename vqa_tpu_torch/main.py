@@ -24,7 +24,10 @@ parameter; cuDNN convs, no kernel; ``--int8_backbone true`` then fails).
 reference's quirk: train steps bypass the int8 stages, while calibration and
 evaluation keep the running stats. ``--grad_accum N`` accumulates N
 microbatches a step; ``--profile_steps N`` writes a ``torch.profiler``
-trace of N steps into the run directory.
+trace of N steps into the run directory, the program's spans in it. Each
+log line adds the median host ms, since the last line, of the step's
+phases (``HOST_PHASES``: the wait for the loader, forward, backward, Adam),
+also as TensorBoard's ``Train/HostMs/<phase>``.
 
 ``--cache_features true`` runs the frozen tower once per unique image
 (``data.feature_cache``): after the checkpoint loads and the int8 stages
@@ -71,10 +74,21 @@ from .parallel import distributed
 from .train.checkpoint import (AsyncCheckpointer, latest_checkpoint, load_any,
                                load_params_only)
 from .train.logging import ETAEstimator, make_summary_writer, print_and_log, setup_logs_file
-from .train.profiling import ProfileWindow, SyncedRateTracker
+from .train.profiling import ProfileWindow, SyncedRateTracker, summary
 from .train.state import create_train_state
 from .train.steps import compute_validation_metrics, make_eval_step, make_train_step
 from .vocab import Vocab
+
+# the host phases of a train step that each log line reports: (label, span)
+HOST_PHASES = (("data.wait", "vqa.data.wait"), ("forward", "vqa.train.forward"),
+               ("backward", "vqa.train.backward"), ("optimizer", "vqa.train.optimizer"))
+
+
+def host_phase_ms(since: int) -> dict[str, float]:
+    """{label: median host ms} of :data:`HOST_PHASES` over the spans that
+    started at or after ``since`` (a ``perf_counter_ns`` reading)."""
+    spans = summary(since)
+    return {label: spans[name]["median_ms"] for label, name in HOST_PHASES if name in spans}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -594,6 +608,7 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
     excluded = 0.0          # host seconds in validation, logging and saves
     train_seconds = None    # the whole loop's, once it ends
     t_loop = time.perf_counter()
+    span_mark = time.perf_counter_ns()    # host phases since the last log line
 
     def validate(size):
         nonlocal eval_batches
@@ -638,6 +653,7 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
                 if (curr_step + 1) % args.log_interval == 0 or curr_step == 1:
                     loss_val = float(metrics["loss"])   # device sync point
                     timer.mark(curr_step)
+                    host_ms = host_phase_ms(span_mark)
                     sync_points.append((curr_step + 1,
                                         time.perf_counter() - t_loop - excluded))
                     t0 = time.perf_counter()
@@ -649,13 +665,17 @@ def train(args, model, vocab, preprocess, make_loader, samples_of, log_dir, devi
                         writer.add_scalar("Val/Loss", vm["loss"], curr_step)
                     writer.add_scalar("Train/Loss", loss_val, curr_step)
                     writer.add_scalar("Train/QAPairsPerSec", timer.qa_pairs_per_sec, curr_step)
+                    for label, ms in host_ms.items():
+                        writer.add_scalar(f"Train/HostMs/{label}", ms, curr_step)
                     elapsed, left = eta(curr_step)
                     print_and_log(
                         "Epoch [{}/{}], Step [{}/{}], Loss: {:.4f} | time elapsed: "
-                        "{:.2f}h | time left: {:.2f}h | {}".format(
+                        "{:.2f}h | time left: {:.2f}h | {} | host ms {}".format(
                             epoch + 1, args.num_epochs, curr_step + 1, steps_per_epoch,
-                            loss_val, elapsed, left, timer.summary()), log_file)
+                            loss_val, elapsed, left, timer.summary(),
+                            " ".join(f"{k} {v:.2f}" for k, v in host_ms.items())), log_file)
                     excluded += time.perf_counter() - t0
+                    span_mark = time.perf_counter_ns()
 
                 if (curr_step + 1) % args.save_interval == 0:
                     print(f"Saving the model at the {curr_step + 1} step to "

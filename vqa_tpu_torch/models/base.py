@@ -24,6 +24,9 @@ pixels (vqa_tpu's ``image_is_features``).
 Under tensor parallelism (``parallel.sharding``, ``tp_active``) the head
 runs on ``DTensor`` s with plain tensors replicated, and ``forward``
 returns the logits as a full local tensor.
+
+``forward`` times its two halves on the host as the spans
+``vqa.model.tower`` and ``vqa.model.head`` (``train.profiling.span``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 import torch.nn as nn
 
 from ..parallel.sharding import head_context
+from ..train.profiling import span
 from .layers import autocast
 from .vgg import VGGFeatures
 
@@ -100,8 +104,9 @@ class VQANet(nn.Module):
         """x_img [B, H, W, 3] normalized, ids [B, L], lengths [B] -> logits [B, K].
         ``use_running_stats=False``: batch-stats BatchNorm (training only).
         ``image_is_features``: ``x_img`` holds :meth:`cache_features`' values."""
-        feats = (self.features_from_cache(x_img) if image_is_features
-                 else self.features(x_img, use_running_stats))
-        with head_context(self.tp_active):
+        with span("vqa.model.tower"):
+            feats = (self.features_from_cache(x_img) if image_is_features
+                     else self.features(x_img, use_running_stats))
+        with span("vqa.model.head"), head_context(self.tp_active):
             logits = self.head(feats, x_ques, x_ques_lens)
-        return logits.full_tensor() if self.tp_active else logits
+            return logits.full_tensor() if self.tp_active else logits

@@ -29,6 +29,11 @@ contract (text, vocab, image decode) is the port's copy of vqa_tpu's
 (``vqa_tpu_torch.{text,vocab,data.images}``). This module imports nothing of
 ``vqa_tpu_torch.models`` until a :class:`VQAPredictor` is built, so a server
 of an exported program runs without the model code.
+
+Each batch's phases are spans (``train.profiling.span``): ``vqa.serve.decode``,
+``vqa.serve.encode``, and ``vqa.serve.forward`` (the device forward, host to
+host) around ``vqa.serve.to_device`` and ``vqa.serve.to_host``. At exit the
+CLI prints each one's count, median and p95 on one line of stderr.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ import torch
 from .config import resolve_device
 from .data.images import decode_batch
 from .text import pad_sequences, preprocess_text
+from .train.profiling import span, summary
 from .vocab import UNK_TOKEN, Vocab
 
 
@@ -70,14 +76,15 @@ class _ServingEngine:
 
     def encode_questions(self, questions: list[str]):
         """Raw question strings -> (ids [N, L], lengths [N])."""
-        unk = self.vocab.word2idx[UNK_TOKEN]
-        ids = np.zeros((len(questions), self.vocab.max_seq_length), np.int32)
-        lens = np.zeros((len(questions),), np.int32)
-        for i, q in enumerate(questions):
-            toks = [self.vocab.word2idx.get(w, unk) for w in preprocess_text(q)]
-            ids[i] = pad_sequences(toks, self.vocab.max_seq_length)
-            lens[i] = int(np.count_nonzero(ids[i]))
-        return ids, lens
+        with span("vqa.serve.encode"):
+            unk = self.vocab.word2idx[UNK_TOKEN]
+            ids = np.zeros((len(questions), self.vocab.max_seq_length), np.int32)
+            lens = np.zeros((len(questions),), np.int32)
+            for i, q in enumerate(questions):
+                toks = [self.vocab.word2idx.get(w, unk) for w in preprocess_text(q)]
+                ids[i] = pad_sequences(toks, self.vocab.max_seq_length)
+                lens[i] = int(np.count_nonzero(ids[i]))
+            return ids, lens
 
     def predict_probs(self, image_paths: list[str], questions: list[str]) -> np.ndarray:
         """Softmax probabilities [N, K] of (image, question) pairs, batch by
@@ -91,8 +98,9 @@ class _ServingEngine:
             t0 = time.perf_counter()
             chunk_qs = questions[start:start + bs]
             n = len(chunk_qs)
-            images = decode_batch(image_paths[start:start + bs], self.image_size,
-                                  synthetic_fallback=self.synthetic_images)
+            with span("vqa.serve.decode"):
+                images = decode_batch(image_paths[start:start + bs], self.image_size,
+                                      synthetic_fallback=self.synthetic_images)
             self._prepare_batch(images)
             ids, lens = self.encode_questions(chunk_qs)
             if n < bs:
@@ -208,10 +216,14 @@ class VQAPredictor(_ServingEngine):
     @torch.no_grad()
     def _probs(self, images_u8, ids, lens) -> np.ndarray:
         dev = self.device
-        logits = self.model(self.preprocess(images_u8),
-                            torch.from_numpy(ids).long().to(dev),
-                            torch.from_numpy(lens).long().to(dev))
-        return torch.softmax(logits.float(), dim=-1).cpu().numpy()
+        with span("vqa.serve.forward"):
+            with span("vqa.serve.to_device"):
+                x = self.preprocess(images_u8)
+                ids = torch.from_numpy(ids).long().to(dev)
+                lens = torch.from_numpy(lens).long().to(dev)
+            logits = self.model(x, ids, lens)
+            with span("vqa.serve.to_host"):
+                return torch.softmax(logits.float(), dim=-1).cpu().numpy()
 
 
 # the flags that build a VQAPredictor: an exported artifact fixes all of them
@@ -344,7 +356,18 @@ def main(argv=None):
             out.close()
     if args.output:
         print(f"wrote {n_written} predictions to {args.output}")
+    print_serve_spans()
     return predictor
+
+
+def print_serve_spans() -> None:
+    """One line on stderr (stdout may be the answers): each ``vqa.serve.*``
+    span's count, median and p95 host ms in this process."""
+    spans = {k: v for k, v in summary().items() if k.startswith("vqa.serve.")}
+    if spans:
+        print("serve spans (host ms): " + "; ".join(
+            f"{k} n={v['count']} median {v['median_ms']:.3f} p95 {v['p95_ms']:.3f}"
+            for k, v in spans.items()), file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,11 @@ means, all-reduced over ``data``.
 holds a feature cache's rows (``data.feature_cache``), so the step skips the
 cached part of the frozen tower (``VQANet.forward``); a cached tower is
 frozen with running statistics, so it does not combine with batch stats.
+
+The host time of each phase goes to ``train.profiling``'s span log:
+``vqa.train.step`` around a call, ``vqa.train.forward`` (the model and the
+loss) and ``vqa.train.backward`` once a microbatch, ``vqa.train.optimizer``
+around Adam's step.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel.sharding import all_reduce_grads, head_context
+from .profiling import span
 from .state import TrainState
 
 
@@ -63,16 +69,23 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
         raise ValueError("cached features come from a frozen running-stats tower")
 
     def forward_backward(state, runner, batch):
-        logits = runner(batch["image"], batch["question"], batch["ques_len"],
-                        use_running_stats=not use_batch_stats_bn,
-                        image_is_features=image_is_features)
-        loss = cross_entropy_loss(logits, batch["label"])
-        with head_context(state.model.tp_active):    # backward of the DTensor head
+        with span("vqa.train.forward"):
+            logits = runner(batch["image"], batch["question"], batch["ques_len"],
+                            use_running_stats=not use_batch_stats_bn,
+                            image_is_features=image_is_features)
+            loss = cross_entropy_loss(logits, batch["label"])
+        # backward of the DTensor head; the autograd engine launches the
+        # backward's kernels from its own device thread while this span is open
+        with span("vqa.train.backward"), head_context(state.model.tp_active):
             loss.backward()
         accuracy = (logits.detach().argmax(dim=-1) == batch["label"]).float().mean()
         return loss.detach(), accuracy
 
     def train_step(state: TrainState, batch: dict) -> dict:
+        with span("vqa.train.step"):
+            return _train_step(state, batch)
+
+    def _train_step(state: TrainState, batch: dict) -> dict:
         runner = state.runner or state.model
         runner.train()
         state.optimizer.zero_grad(set_to_none=True)
@@ -97,7 +110,8 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
                     if p.grad is not None:
                         p.grad.div_(grad_accum)
             loss, accuracy = loss / grad_accum, accuracy / grad_accum
-        state.optimizer.step()
+        with span("vqa.train.optimizer"):
+            state.optimizer.step()
         state.step += 1
         if state.mesh is not None:      # the global batch's means, as vqa_tpu's metrics
             loss, accuracy = data_mean(torch.stack([loss, accuracy]), state.mesh)
