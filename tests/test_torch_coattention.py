@@ -109,6 +109,34 @@ def test_lstm_masked_outputs():
     assert np.all(out[1, 2:] == 0.0) and np.all(out[2, 1:] == 0.0)
 
 
+@pytest.mark.parametrize("lens", [[7, 7, 7, 7, 7], [7, 0, 3, 1, 7]], ids=["full", "ragged"])
+def test_lstm_fused_equals_loop(lens):
+    """The fused call against the masked loop in fp32, forward and
+    backward: outputs within 1e-6 and exactly 0 past each length, the
+    input's and the four weights' gradients within 1e-5 of their norm (the
+    two sum in another order); one ``fused_calls`` a call, no loop call."""
+    torch.manual_seed(5)
+    lstm = LSTM(12, 16, torch.Generator().manual_seed(6))
+    x = torch.randn(len(lens), 7, 12, requires_grad=True)
+    lengths = torch.tensor(lens)
+    g = torch.randn(len(lens), 7, 16)
+    grads = []
+    for run in (lstm, lstm._loop):
+        before = (LSTM.fused_calls, LSTM.loop_calls)
+        out = run(x, lengths)
+        calls = (LSTM.fused_calls - before[0], LSTM.loop_calls - before[1])
+        x.grad = None
+        lstm.zero_grad()
+        (out * g).sum().backward()
+        grads.append((out.detach(), calls, x.grad, *(w.grad for w in lstm._weights())))
+    (fused, fused_calls, *fused_grads), (loop, loop_calls, *loop_grads) = grads
+    assert fused_calls == (1, 0) and loop_calls == (0, 0)
+    torch.testing.assert_close(fused, loop, rtol=0, atol=1e-6)
+    assert torch.all(fused[torch.arange(7)[None, :] >= lengths[:, None]] == 0)
+    for a, b in zip(fused_grads, loop_grads):
+        assert float((a - b).norm()) <= 1e-5 * float(b.norm())
+
+
 def test_phrase_pool_groups_adjacent_channels():
     """Quirk 1: output e = max(cat[3e], cat[3e+1], cat[3e+2])."""
     pcp = PhraseConvPool(4)

@@ -178,6 +178,8 @@ def _world2(weights, work):
     accum = main(["--mode", "train", *cli("accum", "--grad_accum", "2")])
     fsdp_accum = main(["--mode", "train", *cli("fsdp_accum", "--grad_accum", "2",
                                                "--fsdp", "true")])
+    out["fsdp_lstm_calls"] = {k: v - accum["lstm_calls"][k]
+                              for k, v in fsdp_accum["lstm_calls"].items()}
     # a trainable VGG: global batch statistics with autograd, its gradients
     # averaged beside the FSDP-sharded head
     vgg_train = main(["--mode", "train", *cli("vgg_train", *VGG_TRAIN, "--fsdp", "true")])
@@ -200,9 +202,12 @@ def _world4(weights, work):
     rank = dist.get_rank()
     out = {}
     mine = _torch_batch(shard_batch(_batch(), mesh))
-    # TP + FSDP
+    # TP + FSDP: the LSTM's weights are DTensors, so it runs the loop
+    from vqa_tpu_torch.models.layers import lstm_calls
+    before = lstm_calls()
     out["tp_losses"], state = _train(_attention(weights), mine, N_STEPS, mesh, tp=True,
                                      fsdp=True)
+    out["tp_lstm_calls"] = {k: v - before[k] for k, v in lstm_calls().items()}
     params = _full_params(state)
     if rank == 0:
         torch.save(params, os.path.join(work, "tp_params.pt"))
@@ -478,6 +483,14 @@ def test_cli_paths_on_the_mesh_match(groups, run):
     _close(cli[run], cli["full"])
 
 
+def test_fsdp_without_tp_runs_the_fused_lstm(groups):
+    """FSDP alone gathers plain tensors for the forward: the sentence LSTM
+    takes the fused call on every rank, never the loop."""
+    for res in groups.results()[2].values():
+        calls = res["fsdp_lstm_calls"]
+        assert calls["fused"] > 0 and calls["loop"] == 0
+
+
 def test_vgg_train_fsdp_matches_world1(groups):
     """--vgg_train true --fsdp true at world 2 against world 1: the first 3
     steps within VGG_RTOL."""
@@ -514,6 +527,7 @@ def test_tp_fsdp_placements_are_the_rule_table(groups):
     assert res["placements"]["co_attention.w_q.weight"] == (None, "model")
     assert res["placements"]["question_encoder.sentence_lstm.weight_ih_l0"] == \
         ("model", "data")
+    assert res["tp_lstm_calls"]["loop"] > 0 and res["tp_lstm_calls"]["fused"] == 0
 
 
 def test_seq_parallel_matches_world1_and_vqa_tpu(groups, world1, jax_losses):

@@ -11,6 +11,7 @@ without a card fails instead of falling back.
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -81,9 +82,11 @@ def test_predictions_match_vqa_tpu(setup):
 
 
 @pytest.mark.parametrize("model", ["attention", "baseline", "bert"])
-def test_cli_jsonl_matches_vqa_tpu(setup, tmp_path, model):
+def test_cli_jsonl_matches_vqa_tpu(setup, tmp_path, model, capsys):
     """The same ``.pth`` through both CLIs at full width: the reference
-    format for attention and baseline, vqa_tpu's flat dict for bert."""
+    format for attention and baseline, vqa_tpu's flat dict for bert. The
+    port's stderr line counts attention's sentence LSTM on the fused path,
+    once a batch at least."""
     ckpt = setup["ckpt"]
     if model != "attention":
         vocab = Vocab.load(setup["vocab"])
@@ -97,8 +100,12 @@ def test_cli_jsonl_matches_vqa_tpu(setup, tmp_path, model):
             "--synthetic_images", "--opt_lvl", "0", "--top_k", "2"]
     out_j, out_t = tmp_path / "j.jsonl", tmp_path / "t.jsonl"
     jax_main(args + ["--output", str(out_j)])
+    capsys.readouterr()
     port = serve_main(args + ["--output", str(out_t), "--device", "cpu"])
     assert port.num_classes == port.vocab.num_labels
+    calls = re.search(r"lstm calls fused=(\d+) loop=(\d+)", capsys.readouterr().err)
+    if model == "attention":
+        assert int(calls[1]) >= 3 and int(calls[2]) == 0
     if ckpt != setup["ckpt"]:
         os.remove(ckpt)             # 0.5 GB (the VGG head)
     rows_j = [json.loads(s) for s in out_j.read_text().splitlines()]

@@ -29,10 +29,10 @@ from vqa_tpu_torch.vocab import PAD_TOKEN, UNK_TOKEN, Vocab
 
 V, K, L, S, B = 30, 4, 6, 32, 2
 TRAIN_SPANS = ("vqa.train.step", "vqa.train.forward", "vqa.train.backward",
-               "vqa.train.optimizer", "vqa.model.tower", "vqa.model.head")
+               "vqa.train.optimizer", "vqa.model.tower", "vqa.model.head", "vqa.model.lstm")
 SERVE_SPANS = ("vqa.serve.decode", "vqa.serve.encode", "vqa.serve.forward",
                "vqa.serve.to_device", "vqa.model.tower", "vqa.model.head",
-               "vqa.serve.to_host")
+               "vqa.model.lstm", "vqa.serve.to_host")
 
 
 def _by_name(records):
@@ -155,6 +155,7 @@ def test_train_step_spans_once_a_step():
             assert recs[name][i].root == st.id
         fwd = recs["vqa.train.forward"][i]
         assert recs["vqa.model.tower"][i].parent == recs["vqa.model.head"][i].parent == fwd.id
+        assert recs["vqa.model.lstm"][i].parent == recs["vqa.model.head"][i].id
 
 
 def test_predictor_batch_spans(tmp_path):
@@ -175,6 +176,7 @@ def test_predictor_batch_spans(tmp_path):
     for name in ("vqa.serve.to_device", "vqa.model.tower", "vqa.model.head",
                  "vqa.serve.to_host"):
         assert recs[name][0].parent == fwd.id
+    assert recs["vqa.model.lstm"][0].parent == recs["vqa.model.head"][0].id
 
 
 @pytest.mark.parametrize("model_name", ["attention", "baseline"])

@@ -69,6 +69,7 @@ from .config import (MODEL_CONFIGS, build_model, compute_dtype_for_opt_lvl, int_
                      resolve_device, str2bool)
 from .data.dataset import VQASamples
 from .data.pipeline import DataLoader, device_batch, device_prefetch, make_image_preprocessor
+from .models.layers import lstm_calls
 from .models.vgg import VGG11HeadEncoder
 from .parallel import distributed
 from .train.checkpoint import (AsyncCheckpointer, latest_checkpoint, load_any,
@@ -442,6 +443,7 @@ def _run_in_group(args) -> dict:
                        device, mesh)
     from . import _build
     summary["launches"] = {k.symbol: k.launches for k in _build.KERNELS}
+    summary["lstm_calls"] = lstm_calls()
     if device.type == "cuda":
         summary["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
     return summary

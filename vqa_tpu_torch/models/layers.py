@@ -7,12 +7,13 @@
 - :class:`Linear`: an ``nn.Linear`` with the torch-default
   U(+-1/sqrt(fan_in)) init drawn from an explicit generator.
 - :class:`LSTM`: single-layer LSTM over a padded batch, gates (i, f, g, o),
-  the carry frozen at t >= length and the output exactly 0 there — what
-  ``pack_padded_sequence`` -> LSTM -> ``pad_packed_sequence`` gives
-  (layers.py:151-200). The input projection is one matmul for all steps;
-  the recurrence is a Python loop, as ``lax.scan`` is in JAX: no kernel.
-  Parameter names are ``nn.LSTM``'s (``weight_ih_l0`` ...), so reference
-  state dicts load unchanged.
+  the output exactly 0 at t >= length — what ``pack_padded_sequence`` ->
+  LSTM -> ``pad_packed_sequence`` gives (layers.py:151-200). One call of
+  the fused LSTM operator (cuDNN on the card) over the whole padded batch,
+  its outputs masked; a Python loop over the steps, as ``lax.scan`` is in
+  JAX, where the weights are tensor-parallel ``DTensor`` s. Parameter names
+  are ``nn.LSTM``'s (``weight_ih_l0`` ...), so reference state dicts load
+  unchanged.
 - :class:`GRU`: ``nn.GRU`` (gates (r, z, n), separate ``b_ih``/``b_hh``)
   returning the last *valid* hidden state of each sequence
   (layers.py:100-148).
@@ -27,10 +28,21 @@ from __future__ import annotations
 
 import contextlib
 import math
+import warnings
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
+
+from ..train.profiling import span
+
+# LSTM's four weights stay separate parameters (the TP rules, FSDP and
+# ``Module.to`` treat each alone), so cuDNN packs them into its own buffer
+# on every call: a few copies, 8 MB at width 512. Its warning about that
+# describes this design, once a process, from this module's calls alone.
+warnings.filterwarnings("ignore", message="RNN module weights are not part of single "
+                        "contiguous chunk of memory", category=UserWarning, module=__name__)
 
 
 def autocast(dtype: torch.dtype, device_type: str):
@@ -76,7 +88,39 @@ class Linear(nn.Linear):
 
 
 class LSTM(nn.Module):
-    """Masked single-layer LSTM: [B, L, E] + lengths [B] -> [B, L, H]."""
+    """Masked single-layer LSTM: [B, L, E] + lengths [B] -> [B, L, H].
+
+    On plain tensors the recurrence is one call of the fused LSTM operator
+    (``torch._VF.lstm``, what ``nn.LSTM`` calls) over the whole padded batch
+    from a zero state, its outputs then multiplied by ``t < length``. That
+    equals the masked loop: a forward recurrence's output at t < length
+    does not depend on later inputs, the loop's frozen carry changes only
+    outputs at t >= length, which both zero, and no gradient enters there.
+    The lengths stay on the device (``pack_padded_sequence`` would read them
+    on the host: a synchronise a call).
+
+    Precision: the call runs in float32 outside autocast, as :class:`GRU`
+    does, and its output is cast back to the input's dtype. That is never
+    below the loop's precision: under the bf16 policy the loop rounds its
+    gates and state to bfloat16 at every step, where cuDNN keeps them in
+    float32 and takes its products in TF32 with float32 sums
+    (``torch.backends.cudnn.allow_tf32``, on by default: 10 mantissa bits
+    to bfloat16's 7). A float32 input is the fp32 policy: there the call
+    runs with cuDNN off, ATen's own LSTM, whose products are IEEE float32
+    matmuls as the loop's are.
+
+    Where a weight is a ``DTensor`` (the tensor-parallel head, whose weights
+    ``parallel.sharding`` shards by gate block) the recurrence is the masked
+    loop: DTensor has no sharding rule for the fused operator. The loop
+    projects the inputs of all steps in one matmul and freezes the carry at
+    t >= length.
+
+    :attr:`fused_calls` and :attr:`loop_calls` count the calls of each path
+    in the process; either runs inside the span ``vqa.model.lstm``.
+    """
+
+    fused_calls = 0
+    loop_calls = 0
 
     def __init__(self, input_dim: int, hidden_dim: int,
                  generator: torch.Generator | None = None):
@@ -90,7 +134,30 @@ class LSTM(nn.Module):
         for p in self.parameters():
             uniform_(p, h, generator)
 
+    def _weights(self) -> list[torch.Tensor]:
+        return [self.weight_ih_l0, self.weight_hh_l0, self.bias_ih_l0, self.bias_hh_l0]
+
     def forward(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        with span("vqa.model.lstm"):
+            if any(isinstance(w, DTensor) for w in self._weights()):
+                LSTM.loop_calls += 1
+                return self._loop(x, lengths)
+            LSTM.fused_calls += 1
+            return self._fused(x, lengths)
+
+    def _fused(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+        b, seq_len, _ = x.shape
+        h0 = x.new_zeros((1, b, self.hidden_dim), dtype=torch.float32)
+        ieee = (torch.backends.cudnn.flags(enabled=False) if x.dtype == torch.float32
+                else contextlib.nullcontext())
+        with torch.autocast(x.device.type, enabled=False), ieee:
+            out, _, _ = torch._VF.lstm(x.float(), (h0, h0), self._weights(), True, 1, 0.0,
+                                       torch.is_grad_enabled(), False, True)
+        valid = (torch.arange(seq_len, device=x.device)[None, :]
+                 < lengths.to(x.device)[:, None])                      # [B, L]
+        return (out * valid[..., None].to(out.dtype)).to(x.dtype)
+
+    def _loop(self, x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
         b, seq_len, _ = x.shape
         h = self.hidden_dim
         x_proj = F.linear(x, self.weight_ih_l0, self.bias_ih_l0)      # [B, L, 4H]
@@ -113,6 +180,12 @@ class LSTM(nn.Module):
             c_prev = v * c_new + (1.0 - v) * c_prev
             outs.append(v * h_new)
         return torch.stack(outs, dim=1)
+
+
+def lstm_calls() -> dict[str, int]:
+    """{"fused": ..., "loop": ...}: :class:`LSTM` calls of each path so far
+    in this process."""
+    return {"fused": LSTM.fused_calls, "loop": LSTM.loop_calls}
 
 
 class GRU(nn.GRU):

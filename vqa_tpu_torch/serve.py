@@ -362,12 +362,18 @@ def main(argv=None):
 
 def print_serve_spans() -> None:
     """One line on stderr (stdout may be the answers): each ``vqa.serve.*``
-    span's count, median and p95 host ms in this process."""
+    span's count, median and p95 host ms in this process, then the sentence
+    LSTM's calls by path where the model code ran here (an exported program
+    runs none of it)."""
     spans = {k: v for k, v in summary().items() if k.startswith("vqa.serve.")}
     if spans:
-        print("serve spans (host ms): " + "; ".join(
-            f"{k} n={v['count']} median {v['median_ms']:.3f} p95 {v['p95_ms']:.3f}"
-            for k, v in spans.items()), file=sys.stderr)
+        parts = [f"{k} n={v['count']} median {v['median_ms']:.3f} p95 {v['p95_ms']:.3f}"
+                 for k, v in spans.items()]
+        layers = sys.modules.get("vqa_tpu_torch.models.layers")
+        if layers is not None:
+            calls = layers.lstm_calls()
+            parts.append(f"lstm calls fused={calls['fused']} loop={calls['loop']}")
+        print("serve spans (host ms): " + "; ".join(parts), file=sys.stderr)
 
 
 if __name__ == "__main__":
