@@ -75,6 +75,13 @@ without CUDA it exits non-zero before printing any result):
    against one GEMM of its operations and against the library's large
    GEMMs (M = N = 8,192, K 4,096-16,384). Kernel F's and kernel D's
    unpooled rows of the JSON lines come from here;
+   Then the moe phase (``moe_phase``): the ``kimi_vl`` head at the
+   registry's sizes takes one b160 training step on random tower features,
+   its grouped-GEMM launches counted (24: 3 a product, 2 products, 4
+   expert layers), and the first expert layer's operands of that step (its
+   own router's routing) check both products' forward and gradients row by
+   row against the plain per-expert version, then time them beside their
+   bound; its row ends the ``kernels`` line;
 4. serve phase: ``vqa_tpu_torch.serve.main`` answers 96 (image, question)
    requests with each model at full width and its own image size (attention
    448², baseline and bert 224²), batch 32, ``--opt_lvl 1`` (int8 stages
@@ -196,7 +203,9 @@ Per-path launch counts go on a line of their own. The line before the last
 is a JSON object of per-kernel launches (kernels A and B: the attention
 model's serving path; kernel C: its float-route training run; kernels D and
 E: their paths in ``last_kernels_phase``; kernel F: the probes phase),
-errors, times and bounds; the last is ``{"ok": true, "device": {...}}``.
+errors, times and bounds, then the grouped expert products' row (route
+``library``, from the moe phase); the last is ``{"ok": true, "device":
+{...}}``.
 """
 
 from __future__ import annotations
@@ -244,6 +253,9 @@ NATIVE_PIL_MEAN_ABS = 12.0
 # the timing probes (vqa_tpu_torch.tools): bench.py's default batch, as the
 # TPU probes' BENCH_BATCH, and timed calls a variant
 PROBE_BATCH, PROBE_STEPS = 160, 4
+# the grouped expert products against their plain version, row by row: bf16
+# operands and output round to 2^-9, and a row sums 1,408-2,816 products
+MOE_ROW_TOL = 1e-2
 
 
 def timed_pair(kernel_fn, plain_fn, n_kernel=20, n_plain=2):
@@ -846,6 +858,132 @@ def probes_phase(dev, card: str):
     print(f"launches path=probes: {json.dumps(launches)}", flush=True)
     print(f"probes phase: {time.perf_counter() - t0:.2f} s ({card})", flush=True)
     return rows, launches
+
+
+MOE_BATCH, MOE_QUESTION = 160, 23      # the kimi_vl.train.b160 cell: T = 196 + 23
+
+
+def moe_phase(card: str) -> dict:
+    """The ``kimi_vl`` head's grouped expert products (``ops.moe_gmm``:
+    ``torch._grouped_mm``, the library's grouped GEMM, in bf16) at the
+    training cell's shapes. First the path: the model at the registry's
+    sizes (5 layers, 32 of 64 experts held) takes one training step of
+    ``make_train_step(image_is_features=True)`` on random b160 tower
+    features and full-length questions, with ``moe_gmm.LAUNCHES`` zeroed
+    just before and read just after: 3 launches a product a layer (4 expert
+    layers, 2 products: 24). The first expert layer's operands of that step
+    (its rows, weights and plan, from its own router) are kept; each
+    product's forward and both gradients are held row by row (within
+    MOE_ROW_TOL of each row's norm: a wrong tile of 128 columns moves its
+    rows by a fifth) against the plain version (one float32 ``torch.mm`` an
+    expert) on the same bf16 operands; then timed (CUDA events): forward,
+    and forward plus backward, beside the plain version in bf16 (one
+    launch an expert) and the bound (bf16 operations at 989 TFLOP/s or
+    bytes at 3.35 TB/s). Returns the ``kernels`` line's row."""
+    import torch
+    from vqa_tpu_torch.config import build_model
+    from vqa_tpu_torch.ops import moe_gmm
+    from vqa_tpu_torch.train.state import create_train_state
+    from vqa_tpu_torch.train.steps import make_train_step
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    model, _ = build_model("kimi_vl", VOCAB_WORDS, ANSWERS + 1, device=dev, opt_lvl=1,
+                           generator=torch.Generator().manual_seed(7))
+    state = create_train_state(model, 1e-4)
+    step = make_train_step(image_is_features=True)
+    s = (IMAGE // 32) ** 2
+    batch = {"image": torch.randn((MOE_BATCH, s, 512), generator=g, device=dev).relu(),
+             "question": torch.randint(1, VOCAB_WORDS, (MOE_BATCH, MOE_QUESTION), generator=g,
+                                       device=dev),
+             "ques_len": torch.full((MOE_BATCH,), MOE_QUESTION, device=dev),
+             "label": torch.randint(0, ANSWERS + 1, (MOE_BATCH,), generator=g, device=dev)}
+    kept = []
+    grouped = moe_gmm.grouped_mm
+
+    def keep(x, w, p):
+        if len(kept) < 2:
+            kept.append((x.detach(), w.detach(), p))
+        return grouped(x, w, p)
+
+    moe_gmm.grouped_mm = keep
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        moe_gmm.LAUNCHES = 0
+        out = step(state, batch)
+        float(out["loss"])
+        launches = moe_gmm.LAUNCHES
+    finally:
+        moe_gmm.grouped_mm = grouped
+    layers = len(model.moe_layers())
+    print(f"launches path=kimi_vl train step b{MOE_BATCH}: grouped_mm {launches} "
+          f"({time.perf_counter() - t0:.2f} s; {layers} expert layers)", flush=True)
+    if launches != 6 * layers:
+        raise AssertionError(f"kimi_vl's train step: {launches} grouped-GEMM launches, "
+                             f"want {6 * layers} (3 a product a layer)")
+    del state, step, out
+    torch.cuda.empty_cache()
+
+    row = {"name": "grouped_mm", "route": "library", "source": "vqa_tpu_torch/ops/moe_gmm.py",
+           "replaces": None, "launches": launches, "max_row_err": 0.0, "ms": 0.0,
+           "fwd_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations"}
+    for label, (x, w, p) in zip(("gate_up", "down"), kept):
+        wc = w.bfloat16()
+        xf, wf = x.float(), wc.float()
+        x = x.clone().requires_grad_()
+        wp = w.clone().requires_grad_()
+        y = moe_gmm.grouped_mm(x, wp, p)
+        gy = torch.randn(y.shape, generator=g, device=dev).bfloat16()
+        y.backward(gy)
+        errs = {"y": _worst_row(y, moe_gmm._rows(xf, wf, p, transposed=True)),
+                "dx": _worst_row(x.grad, moe_gmm._rows(gy.float(), wf, p, transposed=False)),
+                "dw": _worst_row(wp.grad, moe_gmm._wgrad(gy.float(), xf, p))}
+        held = [int(c) for c in p.counts.tolist()]
+        print(f"grouped_mm {label}: rows {p.rows} of {sum(held)} pairs held "
+              f"({p.rows / sum(held):.4f}), busiest held expert {max(held[:-1])} rows "
+              f"(mean {p.rows / (len(held) - 1):.1f}); worst row error {json.dumps(errs)}",
+              flush=True)
+        if max(errs.values()) > MOE_ROW_TOL:
+            raise AssertionError(f"grouped_mm {label}: rows off the plain version: {errs}")
+        row["max_row_err"] = max(row["max_row_err"], *errs.values())
+        x = x.detach().requires_grad_()
+
+        def fwd():
+            return moe_gmm.grouped_mm(x, wp, p)
+
+        def fwd_bwd():
+            fwd().backward(gy)
+
+        def plain():
+            for e in range(len(p.bounds) - 1):
+                a, b = p.bounds[e], p.bounds[e + 1]
+                x[a:b].detach() @ wc[e].t()
+
+        fwd_bwd()
+        fms, ms, pms = cuda_ms(fwd, 10), cuda_ms(fwd_bwd, 10), cuda_ms(plain, 3)
+        n, k = wc.shape[1], wc.shape[2]
+        ops = 3 * 2.0 * p.rows * n * k
+        moved = 3 * nbytes(x, wc, y) + nbytes(wp)      # three passes; dw stored in f32
+        bms, by = bound(moved, ops, BF16_FLOPS)
+        print(f"grouped_mm {label} ({card}): forward {fms:.4f} ms, forward + backward "
+              f"{ms:.4f} ms, bound {bms:.4f} ms ({by}; {100 * bms / ms:.1f}%), plain forward "
+              f"(an expert a launch) {pms:.4f} ms", flush=True)
+        row["ms"] += ms
+        row["fwd_ms"] += fms
+        row["plain_ms"] += pms
+        row["bound_ms"] += bms
+        row["bound_by"] = by
+        del x, wp, y, gy
+    del model, kept
+    torch.cuda.empty_cache()
+    return row
+
+
+def _worst_row(a, b) -> float:
+    """The largest relative distance of a row of ``a`` from ``b``'s."""
+    a, b = a.detach().double().flatten(0, -2), b.double().flatten(0, -2)
+    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max())
 
 
 def write_requests():
@@ -1967,6 +2105,9 @@ def main() -> int:
                 **({} if f_row else {"batch": PROBE_BATCH})}
     del probe_rows
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    moe_row = moe_phase(card)
+    print(f"moe phase: {time.perf_counter() - t0:.2f} s", flush=True)
     serve_launches, export_launches = {}, {}
     forwards = -(-N_REQUESTS // BATCH)
     for model_name in ("attention", "baseline", "bert"):
@@ -2037,7 +2178,7 @@ def main() -> int:
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {**kernel_fields(IMAGE, k, json_modes[k.symbol]), "launches": path_launches[k.symbol]}
-        for k in _build.KERNELS]}), flush=True)
+        for k in _build.KERNELS] + [moe_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -12,8 +12,10 @@ build the same stage set, hand-offs and stem in both packages. Two changes:
   ``VQA_CONVP_FORCE``) are not carried over: each op has one CUDA kernel.
 
 All three families are ported: ``attention`` (448²), ``baseline`` and
-``bert`` (224²); ``bert``'s position table holds
-``max(64, max_seq_length)`` positions, as vqa_tpu sizes it. A trainable VGG
+``bert`` (224²); ``bert``'s position table holds ``max(64,
+max_seq_length)`` positions, as vqa_tpu sizes it. A fourth, ``kimi_vl``
+(448²: the attention model's tower under Kimi-VL-A3B's decoder,
+:mod:`.models.kimi_vl`), has no counterpart in vqa_tpu. A trainable VGG
 recomputes its conv stack in backward (``remat``) in the attention and
 baseline models; ``bert`` gets neither ``remat`` nor ``s2d_first``, as
 vqa_tpu's ``build_model`` passes neither to it (config.py:191-200).
@@ -69,6 +71,18 @@ MODEL_CONFIGS = {
     "bert": ModelConfig(
         name="bert", image_size=224,
         question_params=dict(hidden_dim=768, num_layers=6, num_heads=12)),
+    # Kimi-VL-A3B-Instruct's language model at its published widths, cut to
+    # one chip: 5 of 27 layers (one dense, four expert layers) and experts
+    # 0-31 of 64 (one rank of expert parallelism over two chips); the keys
+    # are its config.json's (vqabench/configs/kimi-vl-a3b-448.json)
+    "kimi_vl": ModelConfig(
+        name="kimi_vl", image_size=448,
+        question_params=dict(
+            hidden_size=2048, num_hidden_layers=5, first_k_dense_replace=1,
+            intermediate_size=11264, moe_intermediate_size=1408, num_attention_heads=16,
+            qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128, kv_lora_rank=512,
+            n_routed_experts=64, experts_held=32, n_shared_experts=2, num_experts_per_tok=6,
+            routed_scaling_factor=2.446, rope_theta=800000.0, rms_norm_eps=1e-5)),
 }
 
 
@@ -151,6 +165,11 @@ def build_model(model_name: str, vocab_size: int, num_classes: int, *,
         model = VQABertNet(vocab_size=vocab_size, K=num_classes,
                            max_len=max(64, max_seq_length or 0),
                            **{**vgg_kwargs, "s2d_first": False}, **cfg.question_params)
+    elif model_name == "kimi_vl":
+        from .models.kimi_vl import KimiVLNet
+        # the head is built and initialized on ``device`` (no host copy)
+        model = KimiVLNet(vocab_size=vocab_size, K=num_classes, remat=remat, device=device,
+                          **vgg_kwargs, **cfg.question_params)
     else:
         raise KeyError(model_name)
     return model.to(device), cfg

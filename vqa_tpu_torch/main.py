@@ -1,6 +1,6 @@
 """Train/eval CLI (port of vqa_tpu/main.py), flag-compatible with it.
 
-    python -m vqa_tpu_torch.main --mode train --model attention|baseline|bert \\
+    python -m vqa_tpu_torch.main --mode train --model attention|baseline|bert|kimi_vl \\
         --expt_dir runs --expt_name e --run_name r --train_img imgs \\
         --train_file train.txt --val_img imgs --val_file val.txt \\
         --vocab_file vocab.pkl --batch_size 32 [--int8_backbone false]
@@ -100,7 +100,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--expt_dir", type=str, required=True, help="root directory for models and summaries")
     add("--expt_name", type=str, required=True, help="expt_dir/expt_name")
     add("--run_name", type=str, required=True, help="expt_dir/expt_name/run_name")
-    add("--model", type=str, required=True, choices=["baseline", "attention", "bert"])
+    add("--model", type=str, required=True,
+        choices=["baseline", "attention", "bert", "kimi_vl"])
     # data (main.py:44-51)
     add("--train_img", type=str, help="training images directory")
     add("--train_file", type=str, help="training dataset file")
@@ -208,6 +209,9 @@ def check_mesh_flags(args) -> None:
     if not on_mesh and (args.model_parallel > 1 or args.fsdp):
         raise SystemExit("--model_parallel/--fsdp need a device mesh: set "
                          "--num_devices > 1 (or --force_mesh true)")
+    if args.model == "kimi_vl" and (args.model_parallel > 1 or args.fsdp):
+        raise SystemExit("--model kimi_vl has no tensor-parallel or FSDP rules; "
+                         "it trains data parallel or on one device")
     if args.seq_parallel:
         if not on_mesh or args.model_parallel <= 1:
             raise SystemExit("--seq_parallel requires --model_parallel > 1")
@@ -276,7 +280,8 @@ def _make_feature_encoder(model_name: str, model, preprocess):
             int8_tag += "@" + ",".join(
                 f"{v:.8g}" for a in vgg.int8_amax
                 for v in (a if isinstance(a, (tuple, list)) else (a,)))
-    boundary = ("coattn_image_encoder" if model_name == "attention"
+    # attention and kimi_vl share the image encoder, so their caches agree
+    boundary = ("coattn_image_encoder" if model_name in ("attention", "kimi_vl")
                 else "vgg11_features") + int8_tag
 
     def encode(images_u8):

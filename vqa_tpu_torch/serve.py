@@ -9,15 +9,15 @@ batch; ``vqa_tpu_torch.export.ExportedPredictor`` puts a program exported
 with ``torch.export`` under it. :func:`main` is the JSONL CLI with
 vqa_tpu.serve's flags plus ``--device``::
 
-    python -m vqa_tpu_torch.serve --model attention|baseline|bert \\
+    python -m vqa_tpu_torch.serve --model attention|baseline|bert|kimi_vl \\
         --vocab_file vocab.pkl --img_dir imgs --input pairs.txt --output preds.jsonl
     python -m vqa_tpu_torch.serve --model attention --vocab_file vocab.pkl \\
         --model_ckpt run/model_3744.ckpt --export_to run/export/
     python -m vqa_tpu_torch.serve --from_export run/export/ --vocab_file vocab.pkl \\
         --img_dir imgs --input pairs.txt
 
-The image size is the model's (448² for attention, 224² for baseline and
-bert) unless ``--image_size`` says otherwise. ``--model_ckpt`` takes the
+The image size is the model's (448² for attention and kimi_vl, 224² for
+baseline and bert) unless ``--image_size`` says otherwise. ``--model_ckpt`` takes the
 port's own ``model_<step>.ckpt`` or a ``.pth`` (the reference format, or
 vqa_tpu's flat bert dict); the head's width comes from the checkpoint.
 
@@ -130,7 +130,8 @@ class _ServingEngine:
 
 def _head_width(model_name: str, sd: dict, checkpoint: str) -> int:
     """The classifier head's width from a state dict (vqa_tpu/serve.py:45-60)."""
-    head = "mlp_classify.W_h.weight" if model_name == "attention" else "fc_final.weight"
+    head = {"attention": "mlp_classify.W_h.weight",
+            "kimi_vl": "classifier.weight"}.get(model_name, "fc_final.weight")
     if head not in sd:
         raise ValueError(f"{checkpoint}: not a {model_name!r} checkpoint (no {head})")
     return int(sd[head].shape[0])
@@ -233,7 +234,7 @@ PREDICTOR_FLAGS = ("model", "model_ckpt", "batch_size", "num_cls", "opt_lvl", "i
 
 def build_parser():
     ap = argparse.ArgumentParser(description="VQA batched inference (PyTorch/CUDA)")
-    ap.add_argument("--model", choices=["baseline", "attention", "bert"],
+    ap.add_argument("--model", choices=["baseline", "attention", "bert", "kimi_vl"],
                     help="required unless --from_export (the artifact's manifest "
                          "names the model)")
     ap.add_argument("--vocab_file", required=True)

@@ -24,6 +24,11 @@ the span also enters ``record_function``, so it shows in the Chrome trace
 as a ``user_annotation`` on the clock of the kernels it launched; with no
 profiler it touches no profiler API. Under ``torch.compile`` or
 ``torch.export`` tracing it records nothing, so no profiler op is captured.
+
+:func:`count`: a named counter of device values (``vqa.<layer>.<what>``),
+summed on the device where they were made, so counting adds one addition
+kernel and no synchronisation; :func:`counter` reads it to the host (and
+waits for the card then).
 """
 
 from __future__ import annotations
@@ -163,6 +168,31 @@ def durations(name: str) -> list[float]:
 def summary(since: int | None = None) -> dict[str, dict]:
     """:meth:`SpanLog.summary` of :data:`LOG`."""
     return LOG.summary(since)
+
+
+COUNTERS: dict[str, torch.Tensor] = {}
+
+
+def count(name: str, values: torch.Tensor) -> None:
+    """Add ``values`` (a tensor of a fixed shape for ``name``) to the counter
+    ``name``, on their device."""
+    if torch.compiler.is_compiling():
+        return
+    held = COUNTERS.get(name)
+    if held is None:
+        COUNTERS[name] = values.detach().clone()
+    else:
+        held.add_(values.detach())
+
+
+def counter(name: str) -> list | None:
+    """The counter ``name``'s sums as a (nested) list, or None if nothing was counted."""
+    held = COUNTERS.get(name)
+    return None if held is None else held.tolist()
+
+
+def counter_names(prefix: str = "") -> list[str]:
+    return sorted(n for n in COUNTERS if n.startswith(prefix))
 
 
 class SyncedRateTracker:

@@ -32,6 +32,13 @@ holds a feature cache's rows (``data.feature_cache``), so the step skips the
 cached part of the frozen tower (``VQANet.forward``); a cached tower is
 frozen with running statistics, so it does not combine with batch stats.
 
+Models with routed experts (``kimi_vl``) define ``balance_loss()``, the
+balance loss of the forward just run, which the step adds to the
+cross-entropy before the backward (the step's ``loss`` stays the
+cross-entropy), and ``update_router_bias()``, a step of the router's
+selection bias without a gradient, which the step calls after Adam's. The
+other models define neither, and their steps launch what they did before.
+
 The host time of each phase goes to ``train.profiling``'s span log:
 ``vqa.train.step`` around a call, ``vqa.train.forward`` (the model and the
 loss) and ``vqa.train.backward`` once a microbatch, ``vqa.train.optimizer``
@@ -69,15 +76,17 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
         raise ValueError("cached features come from a frozen running-stats tower")
 
     def forward_backward(state, runner, batch):
+        balance = getattr(state.model, "balance_loss", None)
         with span("vqa.train.forward"):
             logits = runner(batch["image"], batch["question"], batch["ques_len"],
                             use_running_stats=not use_batch_stats_bn,
                             image_is_features=image_is_features)
             loss = cross_entropy_loss(logits, batch["label"])
+            aux = None if balance is None else balance()
         # backward of the DTensor head; the autograd engine launches the
         # backward's kernels from its own device thread while this span is open
         with span("vqa.train.backward"), head_context(state.model.tp_active):
-            loss.backward()
+            (loss if aux is None else loss + aux).backward()
         accuracy = (logits.detach().argmax(dim=-1) == batch["label"]).float().mean()
         return loss.detach(), accuracy
 
@@ -112,6 +121,9 @@ def make_train_step(vgg_trainable: bool = False, bn_batch_stats: bool | None = N
             loss, accuracy = loss / grad_accum, accuracy / grad_accum
         with span("vqa.train.optimizer"):
             state.optimizer.step()
+            update_bias = getattr(state.model, "update_router_bias", None)
+            if update_bias is not None:
+                update_bias()
         state.step += 1
         if state.mesh is not None:      # the global batch's means, as vqa_tpu's metrics
             loss, accuracy = data_mean(torch.stack([loss, accuracy]), state.mesh)
